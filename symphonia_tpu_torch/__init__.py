@@ -1,0 +1,16 @@
+"""symphonia_tpu_torch — the PyTorch/CUDA port of symphonia_tpu.
+
+The host stage (probe, demuxers, native C++ entropy extraction) is the
+reference package's own, imported; the dense decode math runs on an
+explicit device through kernels written by hand for NVIDIA Hopper
+(``csrc/*.cu``, built with nvcc on first use) or, on CPU tensors, through
+their plain PyTorch twins. This package never imports JAX.
+
+Ported so far: FLAC and MP3 Layer III through :mod:`.batch`
+(``decode_bytes``, ``decode_many``, ``decode_file``).
+"""
+
+from .batch import (DecodedAudio, FlacBatchDecoder,  # noqa: F401
+                    Mp3BatchDecoder, decode_bytes, decode_file, decode_many)
+
+__version__ = "0.1.0"

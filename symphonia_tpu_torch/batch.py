@@ -1,0 +1,572 @@
+"""Batch decode sessions on PyTorch: files -> PCM through the port's kernels.
+
+Port of ``symphonia_tpu/batch.py`` for FLAC and MP3 Layer III. The host
+stage is the reference package's own (probe, demuxers, native C++ entropy
+extraction); the dense stage runs on the ``device`` every decoder is given
+explicitly: the hand-written CUDA kernels on ``"cuda"``, their plain
+PyTorch twins on ``"cpu"``. Nothing picks a device or falls back to the
+CPU on its own.
+
+Only the cases where the reference itself leaves the device take the host
+route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed MP3
+stream, no native library for MP3. Each use adds one to ``host_routes``.
+Codecs outside this slice raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from symphonia_tpu.core.errors import DecodeError, Unsupported
+from symphonia_tpu.core.io import MediaSourceStream
+
+from .ops import flac_dense
+from .ops.mp3_dense import Mp3Dense, reference_tables
+
+logger = logging.getLogger("symphonia_tpu_torch.batch")
+
+# Decodes that took the exact host route (see module docstring).
+host_routes = 0
+
+_NOT_PORTED = {
+    "aac": "AAC-LC batch decode (ROADMAP.md Queue 1 item 1)",
+    "vorbis": "Vorbis batch decode (ROADMAP.md Queue 1 item 2)",
+    "mp1": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
+    "mp2": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
+}
+_OTHER = ("per-packet decode of other codecs and containers "
+          "(ROADMAP.md Queue 1 item 4)")
+
+
+def _not_ported(codec) -> NotImplementedError:
+    what = _NOT_PORTED.get(codec, _OTHER)
+    return NotImplementedError(f"{codec!r}: {what} is not ported to "
+                               "symphonia_tpu_torch yet")
+
+
+def resolve_device(device) -> torch.device:
+    """An explicit device, checked: CUDA must be present when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but CUDA is not "
+                               "available")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@dataclass
+class DecodedAudio:
+    """Bulk decode result: planar int32/float32 [channels, samples]."""
+
+    samples: np.ndarray
+    sample_rate: int
+    bits_per_sample: int
+    md5_ok: Optional[bool] = None
+
+
+def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
+    """STREAMINFO MD5 verification; None when the stream carries no MD5
+    (the all-zero sentinel)."""
+    if si.md5 == b"\x00" * 16:
+        return None
+    from symphonia_tpu.codecs.flac import md5_bytes_of
+
+    return hashlib.md5(
+        md5_bytes_of(samples.astype(np.int64), si.bits_per_sample)
+    ).digest() == si.md5
+
+
+def _gapless_trim(pcm: np.ndarray, track, gapless: bool) -> np.ndarray:
+    if not gapless:
+        return pcm
+    total = pcm.shape[1]
+    start = min(track.delay, total)
+    end = max(start, total - track.padding)
+    return pcm[:, start:end]
+
+
+def _copy_pooled(d: dict) -> dict:
+    """The native extraction returns POOLED buffers that the next file's
+    extraction reuses: copy before queueing."""
+    return {k: (np.array(v, copy=True) if isinstance(v, np.ndarray) else v)
+            for k, v in d.items()}
+
+
+class FlacBatchDecoder:
+    """Whole-file(s) FLAC decode through the batched dense stage.
+
+    ``lane_chunk`` bounds how many subframe lanes go to the device per
+    dispatch (memory bound); any lane count is a valid kernel shape."""
+
+    def __init__(self, *, device, lane_chunk: int = 8192,
+                 verify: bool = False):
+        self.device = resolve_device(device)
+        self.lane_chunk = lane_chunk
+        self.verify = verify
+
+    def _extract_host(self, reader):
+        """Host stage for one stream: (packed | None, blocks | None).
+
+        ``packed`` is the native-extracted lane tensor dict; None means the
+        caller takes the robust per-frame parse (native unavailable,
+        malformed frames, desynced fast scan)."""
+        from symphonia_tpu import native
+
+        si = reader.stream_info
+        packed = None
+        blocks = None
+        total = reader.mss.byte_len()
+        if native.available() and si.block_len_max and total is not None:
+            mss = reader.mss
+            mss.seek(reader._data_start)
+            buf = mss.read_bytes(int(total - reader._data_start))
+            max_frames = (
+                si.n_samples // max(1, si.block_len_min) + 8
+                if si.n_samples else len(buf) // 64 + 16
+            )
+            max_frames = min(max_frames, len(buf) // 10 + 16)
+            packed = native.flac_fast_extract(buf, si, si.block_len_max,
+                                              max_frames)
+            if packed is not None and (packed["status"] != 0).any():
+                packed = None
+            if packed is not None:
+                if si.n_samples:
+                    if int(packed["block"].sum()) < si.n_samples:
+                        packed = None
+                elif packed["F"] > 0:
+                    tail = len(buf) - int(packed["offsets"][-1])
+                    if tail > max(4096, 8 * len(buf) // packed["F"]):
+                        packed = None
+            if packed is not None:
+                blocks = packed["block"].astype(np.int64)
+
+        if packed is None:
+            reader._ensure_scan()
+            starts = reader._frame_starts
+            if len(starts) == 0:
+                return None, None
+            buf = reader._buf
+            ends = np.empty(len(starts), dtype=np.int64)
+            ends[:-1] = starts[1:]
+            ends[-1] = len(buf)
+            n_max = si.block_len_max or int(reader._frame_dur.max())
+            if native.available():
+                packed = native.flac_extract(buf, starts, ends - starts, si,
+                                             n_max)
+                if packed is not None and (packed["status"] != 0).any():
+                    packed = None  # malformed frames: robust path
+            blocks = reader._frame_dur.astype(np.int64)
+        return packed, blocks
+
+    def decode_bytes(self, data: bytes, _reader=None,
+                     _extracted=None) -> DecodedAudio:
+        from symphonia_tpu.codecs.flac import parse_frame
+        from symphonia_tpu.formats.flac import FlacReader
+
+        reader = (_reader if _reader is not None
+                  else FlacReader(MediaSourceStream(data)))
+        si = reader.stream_info
+        if si.bits_per_sample > 25:
+            # 32-bit streams carry 33-bit side channels, beyond the int32
+            # lanes; the reference decodes them on the host, exactly.
+            out = _host_decode(data, gapless=True)
+            if self.verify:
+                out.md5_ok = _flac_md5_ok(out.samples, si)
+            return out
+        packed, blocks = (_extracted if _extracted is not None
+                          else self._extract_host(reader))
+        empty = DecodedAudio(np.zeros((si.channels, 0), np.int32),
+                             si.sample_rate, si.bits_per_sample)
+        if packed is None and blocks is None:  # no frames found at all
+            return empty
+        if packed is not None:
+            pcm = self._decode_packed_chunked(packed, blocks)
+        else:
+            frames = []
+            for p in reader.packet_table().data:
+                try:
+                    frames.append(parse_frame(p, si))
+                except DecodeError:
+                    # Corrupt frame: skip the packet, as the reference
+                    # decode loop does.
+                    logger.warning("flac: skipping corrupt frame")
+            if not frames:
+                return empty
+            C = max(f.header.n_channels for f in frames)
+            frames_per_chunk = max(1, self.lane_chunk // C)
+            n_max = max(si.block_len_max,
+                        max(f.header.block_size for f in frames))
+            outs = []
+            for i in range(0, len(frames), frames_per_chunk):
+                chunk = frames[i : i + frames_per_chunk]
+                pk = flac_dense.pack_parsed_frames(chunk, n_max=n_max)
+                out = flac_dense.decode_packed(pk, self.device)
+                for j, f in enumerate(chunk):
+                    outs.append(out[j, : f.header.n_channels,
+                                    : f.header.block_size])
+            pcm = np.concatenate(outs, axis=1)
+        if si.n_samples:
+            pcm = pcm[:, : si.n_samples]
+        md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
+        return DecodedAudio(pcm, si.sample_rate, si.bits_per_sample, md5_ok)
+
+    def _decode_packed_chunked(self, packed, blocks: np.ndarray) -> np.ndarray:
+        """Dense stage over native-packed tensors in lane chunks, then
+        stitch the per-frame outputs."""
+        F, C, n_max = int(packed["F"]), int(packed["C"]), int(packed["n_max"])
+        frames_per_chunk = max(1, self.lane_chunk // C)
+        lanes = {k: np.asarray(packed[k]).reshape(F, C, -1)
+                 for k in ("res", "coefs")}
+        per_lane = {k: np.asarray(packed[k]).reshape(F, C)
+                    for k in ("order", "shift", "wasted")}
+        outs = []
+        for i in range(0, F, frames_per_chunk):
+            j = min(F, i + frames_per_chunk)
+            sub = {k: v[i:j].reshape((j - i) * C, -1)
+                   for k, v in lanes.items()}
+            sub.update({k: v[i:j].reshape(-1) for k, v in per_lane.items()})
+            sub.update(assign=np.asarray(packed["assign"])[i:j],
+                       F=j - i, C=C, n_max=n_max)
+            out = flac_dense.decode_packed(sub, self.device)
+            for k in range(j - i):
+                outs.append(out[k, :, : int(blocks[i + k])])
+        return np.concatenate(outs, axis=1)
+
+    def decode_file(self, path: str) -> DecodedAudio:
+        with open(path, "rb") as f:
+            return self.decode_bytes(f.read())
+
+    def decode_files(self, paths: Sequence[str]) -> List[DecodedAudio]:
+        datas = []
+        for p in paths:
+            with open(p, "rb") as f:
+                datas.append(f.read())
+        return self.decode_many(datas)
+
+    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
+        """Decode several FLAC streams through MERGED device dispatches:
+        frame lanes of every stream with the same channel count share the
+        lane chunks; per-file outputs are unchanged. Streams whose host
+        stage yields no packed lanes take their per-file path."""
+        from symphonia_tpu.formats.flac import FlacReader
+
+        results: List[Optional[DecodedAudio]] = [None] * len(datas)
+        jobs = []  # (result idx, stream_info, packed, blocks)
+        for i, data in enumerate(datas):
+            try:
+                reader = FlacReader(MediaSourceStream(data))
+            except Exception:
+                reader = None  # decode_bytes raises the reader's error
+            if reader is None or reader.stream_info.bits_per_sample > 25:
+                results[i] = self.decode_bytes(data)
+                continue
+            packed, blocks = self._extract_host(reader)
+            if packed is None:
+                # Robust per-file path, reusing the scan just done.
+                results[i] = self.decode_bytes(
+                    data, _reader=reader, _extracted=(packed, blocks))
+                continue
+            jobs.append((i, reader.stream_info, _copy_pooled(packed),
+                         np.array(blocks, copy=True)))
+        by_c = {}
+        for job in jobs:
+            by_c.setdefault(int(job[2]["C"]), []).append(job)
+        for C, group in by_c.items():
+            self._dispatch_merged(C, group, results)
+        return results
+
+    def _dispatch_merged(self, C: int, group, results) -> None:
+        """One merged dense pass over every stream with channel count C,
+        then split, trim and verify per stream."""
+        n_max = max(int(p["n_max"]) for _, _, p, _ in group)
+        parts = {k: [] for k in ("res", "coefs", "order", "shift",
+                                 "wasted", "assign")}
+        blocks_l = []
+        spans = []
+        total_f = 0
+        for idx, si, p, blocks in group:
+            F = int(p["F"])
+            res = np.asarray(p["res"]).reshape(F, C, int(p["n_max"]))
+            if int(p["n_max"]) != n_max:
+                res = np.pad(res, ((0, 0), (0, 0),
+                                   (0, n_max - int(p["n_max"]))))
+            parts["res"].append(res.reshape(F * C, n_max))
+            parts["coefs"].append(np.asarray(p["coefs"]).reshape(F * C, 32))
+            for k in ("order", "shift", "wasted"):
+                parts[k].append(np.asarray(p[k]).reshape(F * C))
+            parts["assign"].append(np.asarray(p["assign"])[:F])
+            blocks_l.append(np.asarray(blocks))
+            spans.append((idx, si, int(np.asarray(blocks).sum())))
+            total_f += F
+        merged = {k: np.concatenate(v) for k, v in parts.items()}
+        merged.update(F=total_f, C=C, n_max=n_max)
+        pcm_all = self._decode_packed_chunked(merged, np.concatenate(blocks_l))
+        pos = 0
+        for idx, si, n in spans:
+            pcm = pcm_all[:, pos : pos + n]
+            pos += n
+            if si.n_samples:
+                pcm = pcm[:, : si.n_samples]
+            md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
+            results[idx] = DecodedAudio(pcm, si.sample_rate,
+                                        si.bits_per_sample, md5_ok)
+
+
+class Mp3BatchDecoder:
+    """Whole-file MP3 Layer III decode: native C++ entropy stage, then the
+    granule-parallel dense stage (:class:`ops.mp3_dense.Mp3Dense`) in
+    chained chunks of ``granule_chunk`` granules (a memory bound)."""
+
+    def __init__(self, *, device, granule_chunk: int = 4096,
+                 gapless: bool = True):
+        self.device = resolve_device(device)
+        self.granule_chunk = granule_chunk
+        self.gapless = gapless
+        self._dense: Optional[Mp3Dense] = None
+
+    @property
+    def dense(self) -> Mp3Dense:
+        if self._dense is None:
+            self._dense = Mp3Dense.from_numpy(reference_tables(), self.device)
+        return self._dense
+
+    def _reader(self, data: bytes):
+        from symphonia_tpu.core.formats import FormatOptions
+        from symphonia_tpu.formats.mpa import MpaReader
+
+        return MpaReader(MediaSourceStream(data),
+                         FormatOptions(enable_gapless=self.gapless))
+
+    @staticmethod
+    def _extract(reader):
+        """Native Layer III extraction, copied out of the pooled buffers:
+        (spectra [G, C, 576], bt [G, C], mixed [G, C]) or None when the
+        stream is malformed."""
+        from symphonia_tpu import native
+
+        ext = native.mp3_extract(reader._buf, reader._offsets, reader._sizes,
+                                 max_granules=2 * len(reader._offsets) + 2)
+        if ext is None or (ext["status"] != 0).any():
+            return None
+        C = reader.header.n_channels
+        G = ext["n_granules"]
+        return (np.array(ext["spectra"][:G, :C], copy=True),
+                np.array(ext["bt"][:G, :C], copy=True),
+                np.array(ext["mixed"][:G, :C], copy=True).astype(bool))
+
+    def _dense_chunked(self, spectra, bt, mixed, boundary=None) -> np.ndarray:
+        """[G, C, 576] spectra -> [G, C, 576] PCM, chunk by chunk with the
+        carried state kept on the device."""
+        G, C = spectra.shape[:2]
+        dev = self.device
+        parts = []
+        ht = st = None
+        for i in range(0, G, self.granule_chunk):
+            j = min(G, i + self.granule_chunk)
+            bd = (None if boundary is None
+                  else torch.from_numpy(boundary[i:j]).to(dev))
+            out, ht, st = self.dense(
+                torch.from_numpy(np.ascontiguousarray(spectra[i:j])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(bt[i:j])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(mixed[i:j])).to(dev),
+                ht, st, boundary=bd)
+            parts.append(out.cpu().numpy())
+        return (np.concatenate(parts, axis=0) if parts
+                else np.zeros((0, C, 576), np.float32))
+
+    def decode_bytes(self, data: bytes) -> DecodedAudio:
+        from symphonia_tpu import native
+        from symphonia_tpu.codecs.mpa_common import LAYER3
+
+        reader = self._reader(data)
+        h = reader.header
+        if h.layer != LAYER3:
+            raise _not_ported(f"mp{h.layer}")
+        if not native.available():
+            return _host_decode(data, self.gapless)
+        got = self._extract(reader)
+        if got is None:
+            return _host_decode(data, self.gapless)
+        pcm = self._dense_chunked(*got)
+        C = h.n_channels
+        pcm = pcm.transpose(1, 0, 2).reshape(C, -1)
+        pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
+        return DecodedAudio(pcm, h.sample_rate, 32)
+
+    def decode_file(self, path: str) -> DecodedAudio:
+        with open(path, "rb") as f:
+            return self.decode_bytes(f.read())
+
+    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
+        """Merged-dispatch MP3 decode: granule lanes of every Layer III
+        stream with the same channel count share the dense-stage chunks; a
+        per-granule boundary mask breaks the hybrid and polyphase chains at
+        file starts, so merged output equals per-file output. Streams that
+        are not native-extractable Layer III take their per-file path."""
+        from symphonia_tpu import native
+        from symphonia_tpu.codecs.mpa_common import LAYER3
+
+        results: List[Optional[DecodedAudio]] = [None] * len(datas)
+        jobs = []  # (idx, reader, spectra, bt, mixed)
+        for i, data in enumerate(datas):
+            got = None
+            try:
+                if native.available():
+                    reader = self._reader(data)
+                    if reader.header.layer == LAYER3:
+                        got = self._extract(reader)
+            except Exception:
+                got = None  # decode_bytes raises or routes the stream
+            if got is None:
+                results[i] = self.decode_bytes(data)
+            else:
+                jobs.append((i, reader) + got)
+        by_c = {}
+        for job in jobs:
+            by_c.setdefault(int(job[2].shape[1]), []).append(job)
+        for C, group in by_c.items():
+            self._dispatch_merged(C, group, results)
+        return results
+
+    def _dispatch_merged(self, C: int, group, results) -> None:
+        spectra = np.concatenate([g[2] for g in group])
+        bt = np.concatenate([g[3] for g in group])
+        mixed = np.concatenate([g[4] for g in group])
+        counts = [g[2].shape[0] for g in group]
+        boundary = np.zeros(spectra.shape[0], bool)
+        starts = np.cumsum([0] + counts[:-1])
+        boundary[starts[np.asarray(counts) > 0]] = True
+        pcm_all = self._dense_chunked(spectra, bt, mixed, boundary)
+        pos = 0
+        for (idx, reader, _, _, _), n_g in zip(group, counts):
+            pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(C, -1)
+            pos += n_g
+            pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
+            results[idx] = DecodedAudio(pcm, reader.header.sample_rate, 32)
+
+
+def _audio_track_or_raise(fmt):
+    """The default audio track, or Unsupported for containers that opened
+    with only non-audio tracks."""
+    track = fmt.default_track()
+    if track is None or track.codec_params is None:
+        raise Unsupported("no audio tracks")
+    return track
+
+
+def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
+    """Exact per-packet host decode of a FLAC or MP3 stream, for the cases
+    where the reference also leaves the device. Builds the decoder directly
+    (the reference's codec registry would import the JAX package)."""
+    global host_routes
+    import symphonia_tpu as sym
+    from symphonia_tpu.core.formats import FormatOptions
+
+    probed = sym.get_probe().probe(
+        MediaSourceStream(data), fmt_opts=FormatOptions(enable_gapless=gapless))
+    fmt = probed.format
+    track = _audio_track_or_raise(fmt)
+    codec = track.codec_params.codec
+    if codec == "flac":
+        from symphonia_tpu.codecs.flac import FlacDecoder as Dec
+    elif codec in ("mp1", "mp2", "mp3"):
+        from symphonia_tpu.codecs.mpa import MpaDecoder as Dec
+    else:
+        raise _not_ported(codec)
+    host_routes += 1
+    logger.info("host route for a %s stream", codec)
+    dec = Dec(track.codec_params)
+    outs = []
+    while True:
+        pkt = fmt.next_packet()
+        if pkt is None:
+            break
+        if pkt.track_id != track.id:
+            continue
+        try:
+            buf = dec.decode(pkt)
+        except DecodeError:
+            continue  # skip the corrupt packet like the reference loop
+        if buf.frames:
+            outs.append(buf.planes().copy())
+    n_ch = (track.codec_params.channels.count
+            if track.codec_params.channels else 1)
+    pcm = (np.concatenate(outs, axis=1) if outs
+           else np.zeros((n_ch, 0), np.float32))
+    return DecodedAudio(pcm, track.codec_params.sample_rate,
+                        track.codec_params.bits_per_sample or 32)
+
+
+def _route(data: bytes) -> str:
+    """Probe one stream -> 'flac' or 'mp3' for the batch pipelines (native
+    containers only, as in the reference), else a label of what it is."""
+    import symphonia_tpu as sym
+    from symphonia_tpu.formats.flac import FlacReader
+    from symphonia_tpu.formats.mpa import MpaReader
+
+    fmt = sym.get_probe().probe(MediaSourceStream(data)).format
+    track = _audio_track_or_raise(fmt)
+    codec = track.codec_params.codec
+    if codec == "flac" and isinstance(fmt, FlacReader):
+        return "flac"
+    if codec == "mp3" and isinstance(fmt, MpaReader):
+        return "mp3"
+    if codec in _NOT_PORTED:
+        return codec
+    return f"{codec} in {type(fmt).__name__}"
+
+
+def decode_bytes(data: bytes, *, device, verify: bool = False
+                 ) -> DecodedAudio:
+    """Decode one FLAC or MP3 Layer III stream on ``device``."""
+    resolve_device(device)
+    route = _route(data)
+    if route == "flac":
+        return FlacBatchDecoder(device=device, verify=verify).decode_bytes(data)
+    if route == "mp3":
+        return Mp3BatchDecoder(device=device).decode_bytes(data)
+    raise _not_ported(route)
+
+
+def decode_file(path: str, *, device, verify: bool = False) -> DecodedAudio:
+    with open(path, "rb") as f:
+        data = f.read()
+    return decode_bytes(data, device=device, verify=verify)
+
+
+def decode_many(datas: Sequence[bytes], *, device,
+                verify: bool = False) -> List[DecodedAudio]:
+    """Decode a batch of streams, merging device work across files.
+
+    The serving entry point: streams are probed and grouped by codec;
+    FLAC and MP3 groups share merged dispatches. Output order matches input
+    order. Fail-fast: an undecodable stream raises what ``decode_bytes``
+    raises for it, and a codec outside the port raises
+    ``NotImplementedError`` before any decoding starts."""
+    resolve_device(device)
+    routes = [_route(d) for d in datas]
+    for r in routes:
+        if r not in ("flac", "mp3"):
+            raise _not_ported(r)
+    results: List[Optional[DecodedAudio]] = [None] * len(datas)
+    flac_idx = [i for i, r in enumerate(routes) if r == "flac"]
+    mp3_idx = [i for i, r in enumerate(routes) if r == "mp3"]
+    if flac_idx:
+        merged = FlacBatchDecoder(device=device, verify=verify).decode_many(
+            [datas[i] for i in flac_idx])
+        for i, out in zip(flac_idx, merged):
+            results[i] = out
+    if mp3_idx:
+        merged = Mp3BatchDecoder(device=device).decode_many(
+            [datas[i] for i in mp3_idx])
+        for i, out in zip(mp3_idx, merged):
+            results[i] = out
+    return results

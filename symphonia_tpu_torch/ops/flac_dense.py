@@ -1,0 +1,259 @@
+"""FLAC dense stage: batched predictor reconstruction + stereo decorrelation.
+
+PyTorch port of ``symphonia_tpu/ops/flac_dense.py``. Every subframe kind is
+one integer-LPC recurrence per lane (constant/verbatim are order 0, fixed
+order k is LPC with binomial coefficients and shift 0):
+
+    x[n] = r[n]                                         n < order
+    x[n] = r[n] + ((sum_{j<32} c_j * x[n-1-j]) >> shift)  otherwise
+
+followed by ``x << wasted`` and, for stereo, undoing the channel
+decorrelation. Residual rows are ``[L, stride]`` int32 with the warmup
+samples in ``[0, order)``; ``stride`` may exceed the decoded length (the
+native extraction pads rows by 16 columns).
+
+Each public op is a wrapper: on CPU tensors it runs the plain PyTorch twin
+here, on CUDA tensors it launches the hand-written kernel
+(``csrc/flac_dense.cu``: F1 ``flac_lpc`` fuses the recurrence and the
+wasted-bits shift, F2 ``flac_decorrelate``) or raises. The 64-bit
+accumulator is native int64 on both (the reference's 32-bit-limb
+emulation, ``ops/i64emu.py``, existed only because the TPU has no int64).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+MAX_ORDER = 32
+
+# Fixed predictor coefficients, zero-padded (decoder.rs:663).
+FIXED_COEFS_PAD = np.zeros((5, MAX_ORDER), dtype=np.int32)
+for _k, _c in {1: [1], 2: [2, -1], 3: [3, -3, 1], 4: [4, -6, 4, -1]}.items():
+    FIXED_COEFS_PAD[_k, : len(_c)] = _c
+
+# Channel assignment codes for the batch path.
+ASSIGN_INDEPENDENT = 0
+ASSIGN_LEFT_SIDE = 1
+ASSIGN_RIGHT_SIDE = 2
+ASSIGN_MID_SIDE = 3
+
+
+def _wrap_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 modulo 2^32 (two's complement), explicitly."""
+    return (v - (((v + (1 << 31)) >> 32) << 32)).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+
+def lpc_reconstruct_plain(res: torch.Tensor, coefs: torch.Tensor,
+                          order: torch.Tensor, shift: torch.Tensor,
+                          n_samples: int) -> torch.Tensor:
+    """Twin of F1's recurrence: a loop over samples, all lanes at once.
+
+    The product sum is int64 (exact modulo 2^64, as the limb emulation),
+    the shifted value truncates to int32, shifts outside [0, 31] predict 0
+    (XLA's shift semantics), and the int32 add wraps."""
+    L = res.shape[0]
+    dev = res.device
+    c_rev = coefs.to(torch.int64).flip(1)  # c_rev[31-j] multiplies x[n-1-j]
+    sh = shift.to(torch.int64)
+    sh_ok = (sh >= 0) & (sh <= 31)
+    sh = sh.clamp(0, 31)
+    order = order.to(torch.int64)
+    r = res[:, :n_samples].to(torch.int64)
+    # buf[:, n + 32] = x[n]; the 32 leading zeros are the initial history.
+    buf = torch.zeros((L, n_samples + MAX_ORDER), dtype=torch.int64,
+                      device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    for n in range(n_samples):
+        acc = (buf[:, n : n + MAX_ORDER] * c_rev).sum(1)
+        pred = torch.where(sh_ok & (order <= n), acc >> sh, zero)
+        # Wrapping once after the add equals the reference's truncate-then-
+        # wrapping-add (both are the sum modulo 2^32).
+        buf[:, n + MAX_ORDER] = _wrap_i32(r[:, n] + pred)
+    return buf[:, MAX_ORDER:].to(torch.int32)
+
+
+def apply_wasted_bits(x: torch.Tensor, wasted: torch.Tensor) -> torch.Tensor:
+    """Twin of F1's epilogue: x << wasted per lane (decoder.rs:239-242),
+    wrapping in 32 bits; shifts outside [0, 31] give 0 like XLA's."""
+    w = wasted.to(torch.int64)[:, None]
+    ok = (w >= 0) & (w <= 31)
+    y = _wrap_i32(x.to(torch.int64) << w.clamp(0, 31))
+    return torch.where(ok, y, torch.zeros((), dtype=torch.int32,
+                                          device=x.device))
+
+
+def decorrelate_plain(x: torch.Tensor, assignment: torch.Tensor
+                      ) -> torch.Tensor:
+    """Twin of F2 (decoder.rs:32-83) on [F, 2, n] int32; wrapping int32."""
+    c0 = x[:, 0, :].to(torch.int64)
+    c1 = x[:, 1, :].to(torch.int64)
+    a = assignment[:, None]
+    ls1 = _wrap_i32(c0 - c1)
+    rs0 = _wrap_i32(c0 + c1)
+    m2 = _wrap_i32((c0 << 1) | (c1 & 1)).to(torch.int64)
+    ms0 = _wrap_i32(m2 + c1) >> 1
+    ms1 = _wrap_i32(m2 - c1) >> 1
+    x0, x1 = x[:, 0, :], x[:, 1, :]
+    out0 = torch.where(a == ASSIGN_RIGHT_SIDE, rs0,
+                       torch.where(a == ASSIGN_MID_SIDE, ms0, x0))
+    out1 = torch.where(a == ASSIGN_LEFT_SIDE, ls1,
+                       torch.where(a == ASSIGN_MID_SIDE, ms1, x1))
+    return torch.stack([out0, out1], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def lpc_reconstruct_batch(res: torch.Tensor, coefs: torch.Tensor,
+                          order: torch.Tensor, shift: torch.Tensor,
+                          n_samples: int,
+                          wasted: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Reconstruct ``n_samples`` samples per lane -> int32 [L, n_samples],
+    then apply ``wasted`` (None: no shift). res [L, stride >= n_samples]
+    with unit column stride; coefs [L, 32]; order/shift/wasted [L]."""
+    if res.dim() != 2 or res.shape[1] < n_samples or res.stride(1) != 1:
+        raise ValueError("res must be [L, stride >= n_samples], unit "
+                         "column stride")
+    if _build.device_type(res) == "cpu":
+        x = lpc_reconstruct_plain(res, coefs, order, shift, n_samples)
+        return x if wasted is None else apply_wasted_bits(x, wasted)
+    L = res.shape[0]
+    coefs = coefs.to(torch.int32).contiguous()
+    order = order.to(torch.int32).contiguous()
+    shift = shift.to(torch.int32).contiguous()
+    wasted = (torch.zeros(L, dtype=torch.int32, device=res.device)
+              if wasted is None else wasted.to(torch.int32).contiguous())
+    if (coefs.shape != (L, MAX_ORDER) or res.dtype != torch.int32
+            or any(t.shape != (L,) for t in (order, shift, wasted))):
+        raise ValueError("res int32 [L, stride], coefs [L, 32], "
+                         "order/shift/wasted [L]")
+    dev = _build.require_cuda(coefs, order, shift, wasted)
+    if res.device != dev:
+        raise ValueError("res and lane parameters on different devices")
+    out = torch.empty((L, n_samples), dtype=torch.int32, device=dev)
+    lib = _build.lib()
+    err = lib.flac_lpc_launch(
+        res.data_ptr(), res.stride(0), coefs.data_ptr(), order.data_ptr(),
+        shift.data_ptr(), wasted.data_ptr(), out.data_ptr(), L, n_samples,
+        _build.stream_ptr(dev))
+    _build.LAUNCHES["flac_lpc"] += 1
+    _build.check("flac_lpc", err)
+    return out
+
+
+def decorrelate_batch(x: torch.Tensor, assignment: torch.Tensor
+                      ) -> torch.Tensor:
+    """Undo stereo decorrelation on [F, 2, n] given per-frame codes [F].
+    Frames with other codes pass through."""
+    if x.dim() != 3 or x.shape[1] != 2 or x.dtype != torch.int32:
+        raise ValueError("x must be int32 [F, 2, n]")
+    if _build.device_type(x) == "cpu":
+        return decorrelate_plain(x, assignment)
+    x = x.contiguous()
+    assignment = assignment.to(torch.int32).contiguous()
+    dev = _build.require_cuda(x, assignment)
+    F, _, n = x.shape
+    if assignment.shape != (F,):
+        raise ValueError("assignment must be [F]")
+    out = torch.empty_like(x)
+    lib = _build.lib()
+    err = lib.flac_decorrelate_launch(x.data_ptr(), assignment.data_ptr(),
+                                      out.data_ptr(), F, n,
+                                      _build.stream_ptr(dev))
+    _build.LAUNCHES["flac_decorrelate"] += 1
+    _build.check("flac_decorrelate", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side packing (numpy) and the device pipeline
+# ---------------------------------------------------------------------------
+
+
+def pack_parsed_frames(frames, n_max: int | None = None):
+    """Pack a list of ``codecs.flac.ParsedFrame`` into the batch tensors.
+
+    Returns a dict of numpy arrays: res [L, n_max], coefs [L, 32],
+    order/shift/wasted [L], block sizes, assignment codes [F] and per-frame
+    bps. Lanes are frame-major (lane = f * C + c) with C = max channel
+    count in the batch. Same layout as the reference's packer, whose module
+    imports JAX at its top and so cannot be imported here."""
+    from symphonia_tpu.codecs.flac import (SF_CONSTANT, SF_FIXED, SF_LPC,
+                                           SF_VERBATIM)
+    from symphonia_tpu.common.flac import (CHANNELS_LEFT_SIDE,
+                                           CHANNELS_MID_SIDE,
+                                           CHANNELS_RIGHT_SIDE)
+
+    F = len(frames)
+    C = max(f.header.n_channels for f in frames)
+    if n_max is None:
+        n_max = max(f.header.block_size for f in frames)
+    L = F * C
+    res = np.zeros((L, n_max), dtype=np.int32)
+    coefs = np.zeros((L, MAX_ORDER), dtype=np.int32)
+    order = np.zeros(L, dtype=np.int32)
+    shift = np.zeros(L, dtype=np.int32)
+    wasted = np.zeros(L, dtype=np.int32)
+    block = np.zeros(F, dtype=np.int32)
+    assign = np.zeros(F, dtype=np.int32)
+    bps = np.zeros(F, dtype=np.int32)
+    amap = {
+        CHANNELS_LEFT_SIDE: ASSIGN_LEFT_SIDE,
+        CHANNELS_RIGHT_SIDE: ASSIGN_RIGHT_SIDE,
+        CHANNELS_MID_SIDE: ASSIGN_MID_SIDE,
+    }
+    for fi, fr in enumerate(frames):
+        bs = fr.header.block_size
+        block[fi] = bs
+        assign[fi] = amap.get(fr.header.channel_assignment, ASSIGN_INDEPENDENT)
+        bps[fi] = fr.bits_per_sample
+        for ci, sf in enumerate(fr.subframes):
+            ln = fi * C + ci
+            wasted[ln] = sf.wasted_bits
+            if sf.kind in (SF_CONSTANT, SF_VERBATIM):
+                res[ln, :bs] = (sf.constant if sf.kind == SF_CONSTANT
+                                else sf.verbatim)
+            elif sf.kind in (SF_FIXED, SF_LPC):
+                k = sf.order
+                order[ln] = k
+                if sf.kind == SF_FIXED:
+                    coefs[ln] = FIXED_COEFS_PAD[k]
+                else:
+                    shift[ln] = sf.shift
+                    coefs[ln, :k] = sf.coefs
+                res[ln, :k] = sf.warmup
+                res[ln, k:bs] = sf.residuals
+    return {
+        "res": res, "coefs": coefs, "order": order, "shift": shift,
+        "wasted": wasted, "block": block, "assign": assign, "bps": bps,
+        "F": F, "C": C, "n_max": n_max,
+    }
+
+
+def decode_packed(packed, device) -> np.ndarray:
+    """Run the dense stage on packed numpy tensors on ``device`` ->
+    int32 [F, C, n_max] numpy."""
+    device = torch.device(device)
+
+    def put(k):
+        return torch.from_numpy(np.ascontiguousarray(packed[k])).to(device)
+
+    n_max = int(packed["n_max"])
+    x = lpc_reconstruct_batch(put("res"), put("coefs"), put("order"),
+                              put("shift"), n_max, wasted=put("wasted"))
+    F, C = int(packed["F"]), int(packed["C"])
+    x = x.reshape(F, C, n_max)
+    if C == 2:
+        x = decorrelate_batch(x, put("assign"))
+    return x.cpu().numpy()

@@ -1,0 +1,247 @@
+"""MP3 Layer III dense stage: spectra [G, C, 576] -> PCM [G, C, 576].
+
+PyTorch port of ``symphonia_tpu/ops/mp3_dense.py:346`` (``mp3_dense_batch_jax``).
+Every granule decodes in parallel; the two linear cross-granule couplings
+(hybrid overlap-add, polyphase FIFO) are applied by superposition, with
+carried state ``(hybrid_tail [C, 32, 18], synth_tail [C, 480])`` between
+calls and an optional ``boundary [G]`` mask that zeroes both couplings
+where a new stream starts inside a merged batch.
+
+Two kernels:
+
+* ``mp3_hybrid`` (M1): antialias, hybrid IMDCT per block type, hybrid
+  overlap-add, frequency inversion, written as the polyphase operand
+  ``S [G, C, 576]`` (vec index t*32 + k);
+* ``mp3_synth`` (M2): the product of ``S`` with the ``[1056, 576]``
+  combined polyphase matrix in true fp32, with the 480-sample synthesis
+  overlap-add fused into it.
+
+The operator tables are the reference package's numpy builders, imported
+(they are numpy only) and held as buffers of :class:`Mp3Dense`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from symphonia_tpu.ops.mp3_dense import (BLOCK_LONG, BLOCK_SHORT,
+                                         _polyphase_combined_matrix,
+                                         antialias_coeffs,
+                                         freq_inversion_mask,
+                                         hybrid_matrices)
+
+from . import _build
+
+
+def reference_tables() -> Dict[str, np.ndarray]:
+    """The dense stage's constant operators, from the reference builders."""
+    cs, ca = antialias_coeffs()
+    return {
+        "hybrid": hybrid_matrices(),               # [4, 36, 18]
+        "cs": cs, "ca": ca,                        # [8] each
+        "finv": freq_inversion_mask(),             # [32, 18]
+        "polyphase": _polyphase_combined_matrix(),  # [1056, 576]
+    }
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins
+# ---------------------------------------------------------------------------
+
+
+def mp3_hybrid_plain(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
+    """Twin of M1. Returns (S [G, C, 576], hybrid_tail [C, 32, 18])."""
+    G, C, _ = x.shape
+    xb = x.reshape(G, C, 32, 18)
+    bt = bt.to(torch.int64)
+    mixed = mixed.to(torch.bool)
+    # --- antialias (hybrid_synthesis.rs:224) ---
+    n_bounds = torch.where(bt == BLOCK_SHORT, mixed.to(torch.int64),
+                           torch.full_like(bt, 31))
+    lo = xb[:, :, :31, 10:18].flip(-1)  # [G, C, 31, 8], sample 17 - i
+    hi = xb[:, :, 1:, 0:8]
+    nl = lo * cs - hi * ca
+    nh = hi * cs + lo * ca
+    bmask = (torch.arange(31, device=x.device)[None, None, :, None]
+             < n_bounds[:, :, None, None])
+    xa = xb.clone()
+    xa[:, :, 1:, 0:8] = torch.where(bmask, nh, hi)
+    xa[:, :, :31, 10:18] = torch.where(bmask, nl, lo).flip(-1)
+    # --- hybrid IMDCT: one-hot block-type selection per (lane, subband) ---
+    lt = torch.where(bt == BLOCK_SHORT, torch.full_like(bt, BLOCK_LONG), bt)
+    sb_split = torch.where(bt == BLOCK_SHORT,
+                           torch.where(mixed, 2, 0), torch.full_like(bt, 32))
+    idx = torch.where(
+        torch.arange(32, device=x.device)[None, None, :] < sb_split[..., None],
+        lt[..., None], torch.full_like(lt[..., None], BLOCK_SHORT))
+    tmp = torch.zeros((G, C, 32, 36), dtype=x.dtype, device=x.device)
+    for b in range(4):
+        sel = (idx == b).to(x.dtype)[..., None]
+        tmp = tmp + sel * torch.matmul(xa, T[b].T)
+    heads, tails = tmp[..., :18], tmp[..., 18:]
+    # --- hybrid overlap-add: one-granule shift ---
+    if hybrid_tail0 is None:
+        hybrid_tail0 = torch.zeros((C, 32, 18), dtype=x.dtype,
+                                   device=x.device)
+    prev = torch.cat([hybrid_tail0[None], tails[:-1]], dim=0)
+    if boundary is not None:
+        prev = torch.where(boundary[:, None, None, None], 0.0, prev)
+    sb_time = (heads + prev) * finv  # frequency inversion
+    S = sb_time.transpose(-1, -2).reshape(G, C, 576)  # vec index t*32 + k
+    return S, tails[-1].clone()
+
+
+def mp3_synth_plain(S, polyphase, synth_tail0, boundary):
+    """Twin of M2: S [G, C, 576] -> (pcm [G, C, 576], tail [C, 480])."""
+    G, C, _ = S.shape
+    # S @ M^T with M^T made contiguous: the CPU product's sum order then
+    # does not depend on G, so chained calls equal one call.
+    resp = torch.matmul(S, polyphase.T.contiguous())  # [G, C, 1056]
+    if synth_tail0 is None:
+        synth_tail0 = torch.zeros((C, 480), dtype=S.dtype, device=S.device)
+    prev = torch.cat([synth_tail0[None], resp[:-1, :, 576:]], dim=0)
+    if boundary is not None:
+        prev = torch.where(boundary[:, None, None], 0.0, prev)
+    pcm = torch.cat([resp[:, :, :480] + prev, resp[:, :, 480:576]], dim=2)
+    return pcm, resp[-1, :, 576:].clone()
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _opt_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
+    """M1 wrapper: (S [G, C, 576], hybrid_tail [C, 32, 18])."""
+    G, C, _ = x.shape
+    if G == 0:
+        raise ValueError("empty granule batch")
+    if _build.device_type(x) == "cpu":
+        return mp3_hybrid_plain(x, bt, mixed, boundary, hybrid_tail0, T,
+                                cs, ca, finv)
+    x = x.to(torch.float32).contiguous()
+    bt = bt.to(torch.int32).contiguous()
+    mixed = mixed.to(torch.bool).contiguous()
+    boundary = (None if boundary is None
+                else boundary.to(torch.bool).contiguous())
+    hybrid_tail0 = (None if hybrid_tail0 is None
+                    else hybrid_tail0.to(torch.float32).contiguous())
+    opt = [t for t in (boundary, hybrid_tail0) if t is not None]
+    dev = _build.require_cuda(x, bt, mixed, T, cs, ca, finv, *opt)
+    if (bt.shape != (G, C) or mixed.shape != (G, C)
+            or (boundary is not None and boundary.shape != (G,))
+            or (hybrid_tail0 is not None
+                and hybrid_tail0.shape != (C, 32, 18))
+            or x.shape[2] != 576 or T.shape != (4, 36, 18)
+            or cs.shape != (8,) or ca.shape != (8,) or finv.shape != (32, 18)
+            or any(t.dtype != torch.float32 for t in (T, cs, ca, finv))):
+        raise ValueError("x [G, C, 576], bt/mixed [G, C], boundary [G], "
+                         "tail [C, 32, 18], f32 T [4, 36, 18], cs/ca [8], "
+                         "finv [32, 18]")
+    S = torch.empty((G, C, 576), dtype=torch.float32, device=dev)
+    tail = torch.empty((C, 32, 18), dtype=torch.float32, device=dev)
+    lib = _build.lib()
+    err = lib.mp3_hybrid_launch(
+        x.data_ptr(), bt.data_ptr(), mixed.data_ptr(), _opt_ptr(boundary),
+        _opt_ptr(hybrid_tail0), T.data_ptr(), cs.data_ptr(), ca.data_ptr(),
+        finv.data_ptr(), S.data_ptr(), tail.data_ptr(), G, C,
+        _build.stream_ptr(dev))
+    _build.LAUNCHES["mp3_hybrid"] += 1
+    _build.check("mp3_hybrid", err)
+    return S, tail
+
+
+def mp3_synth(S, polyphase, synth_tail0, boundary):
+    """M2 wrapper: S [G, C, 576] -> (pcm [G, C, 576], tail [C, 480]), the
+    polyphase product with ``polyphase [1056, 576]`` in true fp32 and the
+    synthesis overlap-add in one kernel."""
+    G, C, _ = S.shape
+    if G == 0:
+        raise ValueError("empty granule batch")
+    if _build.device_type(S) == "cpu":
+        return mp3_synth_plain(S, polyphase, synth_tail0, boundary)
+    S = S.contiguous()
+    boundary = (None if boundary is None
+                else boundary.to(torch.bool).contiguous())
+    synth_tail0 = (None if synth_tail0 is None
+                   else synth_tail0.to(torch.float32).contiguous())
+    opt = [t for t in (boundary, synth_tail0) if t is not None]
+    dev = _build.require_cuda(S, polyphase, *opt)
+    if (S.dtype != torch.float32 or S.shape[2] != 576
+            or polyphase.dtype != torch.float32
+            or polyphase.shape != (1056, 576)
+            or (boundary is not None and boundary.shape != (G,))
+            or (synth_tail0 is not None and synth_tail0.shape != (C, 480))):
+        raise ValueError("f32 S [G, C, 576], polyphase [1056, 576], "
+                         "boundary [G], tail [C, 480]")
+    if S.data_ptr() % 16 or polyphase.data_ptr() % 16:
+        raise ValueError("S and polyphase must be 16-byte aligned")
+    pcm = torch.empty((G, C, 576), dtype=torch.float32, device=dev)
+    tail = torch.empty((C, 480), dtype=torch.float32, device=dev)
+    lib = _build.lib()
+    err = lib.mp3_synth_launch(
+        S.data_ptr(), polyphase.data_ptr(), _opt_ptr(synth_tail0),
+        _opt_ptr(boundary), pcm.data_ptr(), tail.data_ptr(), G, C,
+        _build.stream_ptr(dev))
+    _build.LAUNCHES["mp3_synth"] += 1
+    _build.check("mp3_synth", err)
+    return pcm, tail
+
+
+# ---------------------------------------------------------------------------
+# The module
+# ---------------------------------------------------------------------------
+
+
+class Mp3Dense(nn.Module):
+    """The Layer III dense stage with its constant operators as buffers.
+
+    ``forward(x, bt, mixed, hybrid_tail0=None, synth_tail0=None,
+    boundary=None) -> (pcm, hybrid_tail, synth_tail)`` with the reference's
+    semantics; ``None`` tails mean stream start."""
+
+    def __init__(self, hybrid, cs, ca, finv, polyphase):
+        super().__init__()
+        self.register_buffer("hybrid", hybrid)        # [4, 36, 18]
+        self.register_buffer("cs", cs)                # [8]
+        self.register_buffer("ca", ca)                # [8]
+        self.register_buffer("finv", finv)            # [32, 18]
+        self.register_buffer("polyphase", polyphase)  # [1056, 576]
+
+    @classmethod
+    def from_numpy(cls, tables: Dict[str, np.ndarray], device) -> "Mp3Dense":
+        def t(k):
+            return torch.from_numpy(np.ascontiguousarray(
+                tables[k], dtype=np.float32))
+
+        return cls(t("hybrid"), t("cs"), t("ca"), t("finv"),
+                   t("polyphase")).to(torch.device(device))
+
+    @staticmethod
+    def state_from_numpy(hybrid_tail: np.ndarray, synth_tail: np.ndarray,
+                         device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Carried state (hybrid_tail [C, 32, 18], synth_tail [C, 480])
+        from numpy, e.g. handed over from the reference mid-stream."""
+        device = torch.device(device)
+        return (torch.from_numpy(np.array(hybrid_tail, np.float32)).to(device),
+                torch.from_numpy(np.array(synth_tail, np.float32)).to(device))
+
+    @staticmethod
+    def state_to_numpy(hybrid_tail: torch.Tensor, synth_tail: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        return hybrid_tail.cpu().numpy(), synth_tail.cpu().numpy()
+
+    def forward(self, x, bt, mixed, hybrid_tail0=None, synth_tail0=None,
+                boundary=None):
+        S, hybrid_tail = mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0,
+                                    self.hybrid, self.cs, self.ca, self.finv)
+        pcm, synth_tail = mp3_synth(S, self.polyphase, synth_tail0, boundary)
+        return pcm, hybrid_tail, synth_tail

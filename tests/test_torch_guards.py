@@ -1,0 +1,174 @@
+"""Guards of the PyTorch port: it never imports JAX, never picks a device
+or falls back to the CPU on its own, and refuses what it has not ported."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from symphonia_tpu_torch import batch as port
+from symphonia_tpu_torch.ops import _build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_imports_jax():
+    # A fresh interpreter: this process has JAX already (conftest.py).
+    code = textwrap.dedent("""
+        import sys
+        sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+        import numpy as np
+        import symphonia_tpu_torch
+        from symphonia_tpu_torch import batch
+        from flac_builder import build_flac_file
+        from mp3_builder import build_mpeg1_l3_stream
+        steps = np.random.default_rng(1).integers(-60, 61, size=(2, 1024))
+        ch = list(np.clip(np.cumsum(steps, axis=1), -32767, 32767))
+        flac = build_flac_file(ch, block_size=256, stereo_mode="mid_side",
+                               kind="fixed", order=2)
+        mp3 = build_mpeg1_l3_stream(3, n_ch=2, seed=1)
+        out = batch.decode_many([flac, mp3], device="cpu", verify=True)
+        assert out[0].md5_ok is True and (out[0].samples == ch).all()
+        assert out[1].samples.shape[0] == 2
+        assert np.isfinite(out[1].samples).all()
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, ROOT],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_sources_import_no_jax():
+    pkg = os.path.join(ROOT, "symphonia_tpu_torch")
+    for dirpath, dirs, files in os.walk(pkg):
+        if "_build" in dirs:
+            dirs.remove("_build")  # build outputs, not package sources
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(dirpath, f)).read()
+                assert "import jax" not in src and "from jax" not in src, f
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "import jax" not in src and "from jax" not in src
+
+
+@pytest.mark.parametrize("make", [
+    lambda: port.FlacBatchDecoder(device="cuda"),
+    lambda: port.Mp3BatchDecoder(device="cuda"),
+    lambda: port.decode_bytes(b"", device="cuda"),
+])
+def test_cuda_without_cuda_raises(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
+
+
+def test_decode_many_cuda_without_cuda_decodes_nothing(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from flac_builder import build_flac_file, random_walk
+
+    data = build_flac_file(random_walk(512, 16, seed=2), block_size=256,
+                           kind="fixed", order=1)
+    calls = []
+    monkeypatch.setattr(port.FlacBatchDecoder, "_decode_packed_chunked",
+                        lambda *a: calls.append(a))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.decode_many([data], device="cuda")
+    assert calls == []
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError):
+        port.FlacBatchDecoder()
+    with pytest.raises(TypeError):
+        port.Mp3BatchDecoder()
+    with pytest.raises(TypeError):
+        port.decode_many([])
+    with pytest.raises(ValueError):
+        port.FlacBatchDecoder(device="meta")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_LIB", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.lib()
+    assert _build._LIB is None
+    assert not (tmp_path / "_build").exists()
+
+
+def test_build_hash_follows_sources():
+    srcs = _build._sources()
+    assert {s.name for s in srcs} >= {"flac_dense.cu", "mp3_dense.cu"}
+    assert _build._source_hash(srcs) == _build._source_hash(srcs)
+    assert set(_build.LAUNCHES) == set(_build.KERNELS)
+
+
+def test_launch_errors_raise():
+    with pytest.raises(RuntimeError, match="flac_lpc: CUDA error 98"):
+        _build.check("flac_lpc", 98)
+    _build.check("flac_lpc", 0)
+
+
+def _wav():
+    from test_wav_pcm import make_wav
+
+    rng = np.random.default_rng(3)
+    return make_wav(rng.integers(-30000, 30000, size=(600, 2)), rate=8000)
+
+
+def _aac():
+    from aac_builder import build_adts, build_raw_block, random_quant_spectrum
+
+    rng = np.random.default_rng(31)
+    frames = [build_raw_block([random_quant_spectrum(rng, 40, 44100)], [0],
+                              40, 140, 44100) for _ in range(2)]
+    return build_adts(frames, 44100, 1)
+
+
+def _vorbis():
+    import importlib.util
+    import pathlib
+
+    pg = importlib.util.find_spec("pygame").submodule_search_locations[0]
+    return (pathlib.Path(pg) / "examples/data/house_lo.ogg").read_bytes()
+
+
+def _layer2():
+    from test_layer12 import _rand_l2_frame
+
+    return b"".join(_rand_l2_frame(s)[0] for s in range(3))
+
+
+@pytest.mark.parametrize("make,item", [
+    (_wav, "item 4"), (_aac, "item 1"), (_vorbis, "item 2"),
+    (_layer2, "item 3"),
+])
+def test_codec_outside_slice_raises(make, item):
+    data = make()
+    with pytest.raises(NotImplementedError, match=item):
+        port.decode_bytes(data, device="cpu")
+    from flac_builder import build_flac_file, random_walk
+
+    flac = build_flac_file(random_walk(512, 16, seed=4), block_size=256,
+                           kind="fixed", order=1)
+    before = port.host_routes
+    with pytest.raises(NotImplementedError, match=item):
+        port.decode_many([flac, data], device="cpu")
+    assert port.host_routes == before
