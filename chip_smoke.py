@@ -6,15 +6,19 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (one line each; any failure raises and exits non-zero):
   1. environment: CUDA card, native host library, nvcc build of csrc/*.cu;
   2. each kernel (F1 flac_lpc, F2 flac_decorrelate, M1 mp3_hybrid,
-     M2 mp3_synth) against its plain PyTorch twin on the card at the main
-     path's shapes, with CUDA-event times for both; the MP3 dense stage
-     against the reference's numpy oracle on a small input, and chained
-     over two calls against one call;
+     M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola) against its
+     plain PyTorch twin on the card at the main path's shapes, with
+     CUDA-event times for both; the MP3 dense stage against the reference's
+     numpy oracle on a small input, and chained over two calls against one
+     call; A2 bit for bit against ``native.aac_dequant_host``, A3 against
+     the reference's sequential ``window_ola_chain``;
   3. the slice: ``symphonia_tpu_torch.batch.decode_many`` on a mixed
-     FLAC + MP3 Layer III batch built from a fixed seed with the repo's
-     test encoders, on ``device="cuda"``: FLAC bit-exact to the source with
-     STREAMINFO MD5 verified, MP3 against the port's CPU-twin path, no host
-     route, every kernel launched.
+     FLAC + MP3 Layer III + AAC-LC batch built from a fixed seed with the
+     repo's test encoders, on ``device="cuda"``: FLAC bit-exact to the
+     source with STREAMINFO MD5 verified, MP3 and AAC against the port's
+     CPU-twin path, no host route, every kernel of the path launched
+     (A2 is not on the decode path, as in the reference, and is checked in
+     phase 2 only).
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
 without a CUDA card or outside a checkout of the repository.
@@ -48,6 +52,17 @@ FLAC_SPECS = [
     ("mid_side", "lpc", 24, dict(order=8)),
 ]
 MP3_SPECS = [(2, s) for s in range(16)] + [(1, 100), (1, 101)]
+AAC_SECONDS = 30
+AAC_CYCLE = (0, 0, 0, 1, 2, 3)  # ONLY_LONG x3, LONG_START, EIGHT_SHORT, STOP
+# (sample rate, content, seed): stereo CPE streams cycling the window
+# sequences with random window shapes; one at 48 kHz, which shares the
+# 44.1 kHz scalefactor bands and so their dispatch; one at 24 kHz, a
+# second bands_long group and dispatch; one with intensity bands in
+# channel 1, whose lanes the host dequantizes (deq = 1) beside channel 0's
+# handoff lanes.
+AAC_SPECS = ([(44100, "cycle", s) for s in range(6)]
+             + [(48000, "cycle", 6), (44100, "intensity", 7),
+                (24000, "cycle", 8)])
 
 # Kernel -> (route, source, the TPU program it replaces)
 KERNEL_INFO = {
@@ -59,7 +74,17 @@ KERNEL_INFO = {
                    "symphonia_tpu/ops/mp3_dense.py:346"),
     "mp3_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
                   "symphonia_tpu/ops/mp3_dense.py:346"),
+    # A1 replaces K6 (:87, prologue on) and K7 (:112, prologue off).
+    "aac_imdct": ("cuda", "symphonia_tpu_torch/csrc/aac_dense.cu",
+                  "symphonia_tpu/ops/aac_dense.py:87"),
+    "aac_dequant": ("cuda", "symphonia_tpu_torch/csrc/aac_dense.cu",
+                    "symphonia_tpu/ops/aac_dense.py:51"),
+    "aac_ola": ("cuda", "symphonia_tpu_torch/csrc/aac_dense.cu",
+                "symphonia_tpu/ops/aac_dense.py:209"),
 }
+# Kernels the reference's decode path does not run (K9 serves only
+# dequant_select and its tests): checked in phase 2, not required in 3.
+OFF_PATH = ("aac_dequant",)
 
 
 def _paths() -> None:
@@ -108,6 +133,28 @@ def build_mp3(i: int) -> bytes:
 
     n_ch, seed = MP3_SPECS[i]
     return build_mpeg1_l3_stream(MP3_FRAMES, n_ch=n_ch, seed=SEED + seed)
+
+
+def build_aac(i: int) -> bytes:
+    _paths()
+    from aac_builder import build_adts, build_raw_block, random_quant_spectrum
+
+    rate, content, seed = AAC_SPECS[i]
+    rng = np.random.default_rng(SEED + 200 + seed)
+    frames = []
+    for f in range(AAC_SECONDS * rate // 1024):
+        if content == "intensity":  # aac_builder sets IS bands on long windows
+            quants = [random_quant_spectrum(rng, 40, rate) for _ in range(2)]
+            frames.append(build_raw_block(quants, [0, 0], 40, 140, rate,
+                                          special_books1={5: 14}))
+            continue
+        seq = AAC_CYCLE[f % len(AAC_CYCLE)]
+        max_sfb = 12 if seq == 2 else 40
+        quants = [random_quant_spectrum(rng, max_sfb, rate, seq)
+                  for _ in range(2)]
+        frames.append(build_raw_block(quants, [seq, seq], max_sfb, 140, rate,
+                                      shape=int(rng.integers(0, 2))))
+    return build_adts(frames, rate, 2)
 
 
 def card_line() -> str:
@@ -293,17 +340,159 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     return out
 
 
+def _bits_equal(a, b) -> bool:
+    """Bit for bit (signs of zero included); both float32 of one shape."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
+    """A1-A3 against their twins on the card at the main path's shapes."""
+    import torch
+
+    from symphonia_tpu import native
+    from symphonia_tpu.codecs.aac import subband_info
+    from symphonia_tpu.ops.aac_dense import window_ola_chain
+    from symphonia_tpu_torch.ops import aac_dense as ad
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    dense = ad.AacDense.from_numpy(ad.reference_tables(), dev)
+    _, bands_long, _ = subband_info(44100)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # Handoff operands at the entropy stage's scales, 80% handoff rows:
+    # Laplacian quants with ~1 escape per row up to +-8191 and the int16
+    # extremes, scales 2^((sf - 100) / 4), zero past the last band. The
+    # other rows carry stale quants and scales whose product overflows.
+    coeffs = (rng.standard_normal((L, 1024)) * 0.1).astype(np.float32)
+    qbuf = np.clip(np.rint(rng.laplace(0.0, 4.0, (L, 1024))), -60, 60)
+    qbuf = qbuf.astype(np.int16)
+    esc = rng.random((L, 1024)) < 1e-3
+    qbuf[esc] = rng.integers(-8191, 8192, int(esc.sum()))
+    qbuf[0, :6] = [8191, -8191, 8190, -8190, 32767, -32768]
+    scales = np.exp2((rng.integers(60, 100, (L, 64)) - 100) / 4.0)
+    scales = scales.astype(np.float32)
+    scales[:, 49:] = 0.0
+    deq = (rng.random(L) >= 0.8).astype(np.int32)
+    qbuf[deq != 0] = 8191
+    scales[deq != 0] = 3e38
+    x = t(coeffs)
+    quant = dense.quant(t(qbuf), t(scales), t(deq), bands_long)
+    xs = t((rng.standard_normal((S, 128)) * 0.1).astype(np.float32))
+    out, errs = {}, {}
+
+    # A1: long with the prologue, long without, short. Bar: 1e-5 of the
+    # larger of 1 and the twin's peak (escape quants push outputs far
+    # above the builder streams' ~0.12; sums of 1024 fp32 terms in another
+    # order differ in proportion to the output).
+    a1 = {"long_prologue": (x, dense.imdct_long, quant),
+          "long": (x, dense.imdct_long, None),
+          "short": (xs, dense.imdct_short, None)}
+    a1_ms = {}
+    for case, args in a1.items():
+        got = ad.aac_imdct(*args)
+        ref = ad.aac_imdct_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f"aac_imdct {case}: not finite")
+        err = float((got - ref).abs().max())
+        bar = 1e-5 * max(1.0, float(ref.abs().max()))
+        if err > bar:
+            raise AssertionError(f"aac_imdct {case}: {err} > {bar}")
+        errs[f"aac_imdct_{case}"] = err
+        a1_ms[case] = (cuda_ms(lambda: ad.aac_imdct(*args), 10),
+                       cuda_ms(lambda: ad.aac_imdct_plain(*args), 10))
+    out["aac_imdct"] = dict(
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("aac_imdct")),
+        shape=[L, 1024], ms=a1_ms["long_prologue"][0],
+        plain_ms=a1_ms["long_prologue"][1],
+        ms_by_case={k: [round(a, 4), round(b, 4)] for k, (a, b) in
+                  a1_ms.items()})
+
+    # A2: bit for bit with its twin and with the host twin of the device
+    # dequantization (native.aac_dequant_host).
+    got = ad.aac_dequant(x, *quant)
+    twin = ad.aac_dequant_plain(x, *quant)
+    host = native.aac_dequant_host(
+        {"coeffs": coeffs[:, None], "qbuf": qbuf[:, None],
+         "scales": scales[:, None], "deq": deq[:, None]},
+        bands_long)[:, 0]
+    torch.cuda.synchronize()
+    if not (_bits_equal(got, twin) and _bits_equal(got, t(host))):
+        raise AssertionError("aac_dequant differs from its twin or the "
+                             "host dequantization")
+    out["aac_dequant"] = dict(
+        max_abs_err=float((got - t(host)).abs().max()), shape=[L, 1024],
+        ms=cuda_ms(lambda: ad.aac_dequant(x, *quant), 20),
+        plain_ms=cuda_ms(lambda: ad.aac_dequant_plain(x, *quant), 5))
+
+    # A3 at L lanes: every window sequence and shape pair, sequence starts
+    # at random; bit for bit with its twin.
+    pcm = t((rng.standard_normal((L, 2048)) * 0.05).astype(np.float32))
+    lanes = [t(rng.integers(0, 4, L).astype(np.int32)),
+             t(rng.integers(0, 2, L).astype(np.int32)),
+             t(rng.integers(0, 2, L).astype(np.int32)),
+             t(rng.random(L) < 0.01)]
+    got = dense.ola(pcm, *lanes)
+    twin = ad.aac_ola_plain(pcm, *lanes, *dense.ola_tables)
+    torch.cuda.synchronize()
+    if not _bits_equal(got, twin):
+        raise AssertionError("aac_ola differs from its twin")
+    # ... and with the reference's sequential chain over a few sequences
+    # of all four window sequences (valid transitions) and both shapes.
+    n_seq, n_fr = 6, 14
+    cyc = [0, 1, 2, 3]
+    flat = (rng.standard_normal((n_seq * n_fr, 2048)) * 0.05).astype(
+        np.float32)
+    seqs = np.array([cyc[(f + k) % 4] for k in range(n_seq)
+                     for f in range(n_fr)], np.int32)
+    shapes = rng.integers(0, 2, n_seq * n_fr).astype(np.int32)
+    prevs = np.roll(shapes, 1)
+    first = np.arange(n_seq * n_fr) % n_fr == 0
+    prevs[first] = rng.integers(0, 2, n_seq)
+    small = dense.ola(t(flat), t(seqs), t(shapes), t(prevs),
+                      t(first)).cpu().numpy()
+    for k in range(n_seq):
+        sl = slice(k * n_fr, (k + 1) * n_fr)
+        pcms = [p.reshape(8, 256) if q == 2 else p
+                for p, q in zip(flat[sl], seqs[sl])]
+        chain = window_ola_chain(pcms, seqs[sl], shapes[sl].astype(bool),
+                                 prevs[sl].astype(bool))
+        if not np.array_equal(small[sl].reshape(-1), chain):
+            raise AssertionError(f"aac_ola differs from window_ola_chain "
+                                 f"(sequence {k})")
+    out["aac_ola"] = dict(
+        max_abs_err=float((got - twin).abs().max()), shape=[L, 2048],
+        ms=cuda_ms(lambda: dense.ola(pcm, *lanes), 20),
+        plain_ms=cuda_ms(lambda: ad.aac_ola_plain(
+            pcm, *lanes, *dense.ola_tables), 5))
+    print("phase 2 aac kernels vs twins:", json.dumps(
+        {**{k: {kk: (round(vv, 4) if kk.endswith("ms") else vv)
+                for kk, vv in v.items()} for k, v in out.items()},
+         **errs, "aac_ola_vs_window_ola_chain": "equal"}), flush=True)
+    return out
+
+
 def build_inputs():
-    """FLAC and MP3 streams from the fixed seed, built in worker processes."""
+    """FLAC, MP3 and AAC streams from the fixed seed, built in worker
+    processes (the slowest first)."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=ctx) as pool:
         flac_f = [pool.submit(build_flac, i) for i in range(len(FLAC_SPECS))]
+        aac_f = [pool.submit(build_aac, i) for i in range(len(AAC_SPECS))]
         mp3_f = [pool.submit(build_mp3, i) for i in range(len(MP3_SPECS))]
         flacs = [f.result() for f in flac_f]
+        aacs = [f.result() for f in aac_f]
         mp3s = [f.result() for f in mp3_f]
-    return flacs, mp3s, time.perf_counter() - t0
+    return flacs, mp3s, aacs, time.perf_counter() - t0
 
 
 def phase_slice() -> dict:
@@ -312,13 +501,16 @@ def phase_slice() -> dict:
     from symphonia_tpu_torch import batch
     from symphonia_tpu_torch.ops import _build
 
-    flacs, mp3s, build_s = build_inputs()
-    # The batch: FLAC entries cycle over the distinct streams, MP3 streams
-    # interleave, so input order is exercised across codecs.
+    flacs, mp3s, aacs, build_s = build_inputs()
+    # The batch: FLAC entries cycle over the distinct streams, MP3 and AAC
+    # streams interleave, so input order is exercised across codecs.
     items = [("flac", i % len(flacs)) for i in range(N_FLAC_ENTRIES)]
     for j in range(len(mp3s)):
         items.insert(3 * j + 1, ("mp3", j))
-    datas = [flacs[i][0] if kind == "flac" else mp3s[i] for kind, i in items]
+    for j in range(len(aacs)):
+        items.insert(7 * j + 2, ("aac", j))
+    src = {"flac": [f[0] for f in flacs], "mp3": mp3s, "aac": aacs}
+    datas = [src[kind][i] for kind, i in items]
     audio_s = 0.0
 
     torch.cuda.synchronize()
@@ -333,9 +525,13 @@ def phase_slice() -> dict:
 
     if routes != 0:
         raise AssertionError(f"host_routes == {routes}")
-    if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    mp3_outs = []
+    if any(v <= 0 for k, v in launches.items() if k not in OFF_PATH):
+        raise AssertionError(f"a kernel of the path was not launched: "
+                             f"{launches}")
+    if launches["aac_ola"] < 2:  # one dispatch per bands_long group
+        raise AssertionError(f"aac: {launches['aac_ola']} dispatches for "
+                             "two bands_long groups")
+    mp3_outs, aac_outs = [], []
     for (kind, i), out in zip(items, outs):
         audio_s += out.samples.shape[1] / out.sample_rate
         if kind == "flac":
@@ -344,8 +540,10 @@ def phase_slice() -> dict:
                 raise AssertionError(f"flac entry {i}: md5_ok={out.md5_ok}")
             if not np.array_equal(out.samples.astype(np.int64), src):
                 raise AssertionError(f"flac entry {i} differs from source")
-        else:
+        elif kind == "mp3":
             mp3_outs.append(out)
+        else:
+            aac_outs.append(out)
     # MP3 against the port's CPU-twin path (K = 576 fp32 sums in another
     # order; builder streams reach |pcm| ~ 6, hence 1e-4).
     cpu = batch.Mp3BatchDecoder(device="cpu").decode_many(mp3s)
@@ -358,12 +556,32 @@ def phase_slice() -> dict:
         e_mp3 = max(e_mp3, float(np.abs(a.samples - b.samples).max()))
     if e_mp3 > 1e-4:
         raise AssertionError(f"mp3 vs CPU twin path: {e_mp3} > 1e-4")
+    # The AAC streams alone, warm, for their share of the wall time.
+    t0 = time.perf_counter()
+    batch.AacBatchDecoder(device="cuda").decode_many(aacs)
+    torch.cuda.synchronize()
+    aac_wall = time.perf_counter() - t0
+    # AAC against the port's CPU-twin path at the reference's batch bar
+    # (1e-5, test_aac.py:213; builder streams reach |pcm| ~ 0.12).
+    cpu = batch.AacBatchDecoder(device="cpu").decode_many(aacs)
+    e_aac = 0.0
+    for a, b in zip(aac_outs, cpu):
+        if a.samples.shape != b.samples.shape or a.samples.shape[0] != 2:
+            raise AssertionError("aac shape differs from the CPU twin path")
+        if not np.isfinite(a.samples).all() or not a.samples.any():
+            raise AssertionError("aac output not finite or all zero")
+        e_aac = max(e_aac, float(np.abs(a.samples - b.samples).max()))
+    if e_aac > 1e-5:
+        raise AssertionError(f"aac vs CPU twin path: {e_aac} > 1e-5")
     info = {
         "entries": len(datas), "flac_entries": N_FLAC_ENTRIES,
-        "mp3_entries": len(mp3s), "input_build_s": round(build_s, 1),
+        "mp3_entries": len(mp3s), "aac_entries": len(aacs),
+        "input_build_s": round(build_s, 1),
         "wall_s": round(wall, 3), "audio_s": round(audio_s, 1),
         "realtime_x": round(audio_s / wall, 1), "host_routes": routes,
-        "launches": launches, "mp3_max_abs_err_vs_cpu": e_mp3,
+        "aac_only_wall_s": round(aac_wall, 3),
+        "launches": launches, "off_path": list(OFF_PATH),
+        "mp3_max_abs_err_vs_cpu": e_mp3, "aac_max_abs_err_vs_cpu": e_aac,
         "card": card_line(),
     }
     print("phase 3 slice decode_many:", json.dumps(info), flush=True)
@@ -380,6 +598,7 @@ def main() -> int:
     _paths()
     env = phase_env()
     kern = phase_kernels()
+    kern.update(phase_aac_kernels())
     sl = phase_slice()
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():

@@ -1,11 +1,11 @@
 """Batch decode sessions on PyTorch: files -> PCM through the port's kernels.
 
-Port of ``symphonia_tpu/batch.py`` for FLAC and MP3 Layer III. The host
-stage is the reference package's own (probe, demuxers, native C++ entropy
-extraction); the dense stage runs on the ``device`` every decoder is given
-explicitly: the hand-written CUDA kernels on ``"cuda"``, their plain
-PyTorch twins on ``"cpu"``. Nothing picks a device or falls back to the
-CPU on its own.
+Port of ``symphonia_tpu/batch.py`` for FLAC, MP3 Layer III and AAC-LC. The
+host stage is the reference package's own (probe, demuxers, native C++
+entropy extraction); the dense stage runs on the ``device`` every decoder is
+given explicitly: the hand-written CUDA kernels on ``"cuda"``, their plain
+PyTorch twins on ``"cpu"``. Nothing picks a device or falls back to the CPU
+on its own.
 
 Only the cases where the reference itself leaves the device take the host
 route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed MP3
@@ -27,6 +27,8 @@ from symphonia_tpu.core.errors import DecodeError, Unsupported
 from symphonia_tpu.core.io import MediaSourceStream
 
 from .ops import flac_dense
+from .ops.aac_dense import LANE_KEYS, AacDense
+from .ops.aac_dense import reference_tables as aac_tables
 from .ops.mp3_dense import Mp3Dense, reference_tables
 
 logger = logging.getLogger("symphonia_tpu_torch.batch")
@@ -35,7 +37,6 @@ logger = logging.getLogger("symphonia_tpu_torch.batch")
 host_routes = 0
 
 _NOT_PORTED = {
-    "aac": "AAC-LC batch decode (ROADMAP.md Queue 1 item 1)",
     "vorbis": "Vorbis batch decode (ROADMAP.md Queue 1 item 2)",
     "mp1": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
     "mp2": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
@@ -453,6 +454,148 @@ class Mp3BatchDecoder:
             results[idx] = DecodedAudio(pcm, reader.header.sample_rate, 32)
 
 
+def _oracle_lanes(items) -> dict:
+    """Per-frame (coeffs, seq, shape, prev_shape) of the Python oracle ->
+    lane arrays: host-dequantized lanes (deq = 1, zero qbuf and scales)."""
+    n = len(items)
+    return {
+        "coeffs": (np.stack([np.asarray(it[0], np.float32) for it in items])
+                   if n else np.zeros((0, 1024), np.float32)),
+        "qbuf": np.zeros((n, 1024), np.int16),
+        "scales": np.zeros((n, 64), np.float32),
+        "deq": np.ones(n, np.int32),
+        "seq": np.array([int(it[1]) for it in items], np.int32),
+        "shape": np.array([int(it[2]) for it in items], np.int32),
+        "prev_shape": np.array([int(it[3]) for it in items], np.int32),
+    }
+
+
+class AacBatchDecoder:
+    """Whole-stream AAC-LC decode: the reference's host entropy stage, then
+    the dense stage (:class:`ops.aac_dense.AacDense`) over the lanes of
+    every (file, channel) frame sequence of a sample-rate group at once, in
+    chunks of at most ``LANE_CHUNK`` lanes (a memory bound: ~16 KB of
+    device memory per lane)."""
+
+    LANE_CHUNK = 32768
+
+    def __init__(self, *, device):
+        self.device = resolve_device(device)
+        self._dense: Optional[AacDense] = None
+
+    @property
+    def dense(self) -> AacDense:
+        if self._dense is None:
+            self._dense = AacDense.from_numpy(aac_tables(), self.device)
+        return self._dense
+
+    @staticmethod
+    def _extract_host(data: bytes):
+        """Host stage for one stream: (decoder, one lane-array dict per
+        channel, see ``ops.aac_dense.LANE_KEYS``).
+
+        The native extraction's buffers are POOLED (the next stream's
+        extraction reuses them), so each channel's lanes are copied out.
+        Without the native library, or when a frame is malformed or carries
+        another channel count, the reference's Python oracle decodes the
+        coefficients instead (undecodable packets are skipped, as the
+        reference's decode loop does)."""
+        import symphonia_tpu as sym
+        from symphonia_tpu import native
+        from symphonia_tpu.codecs.aac import AacDecoder
+
+        fmt = sym.get_probe().probe(MediaSourceStream(data)).format
+        track = _audio_track_or_raise(fmt)
+        if track.codec_params.codec != "aac":
+            raise DecodeError("not an AAC stream")
+        dec = AacDecoder(track.codec_params)
+        C = dec.spec.num_channels
+        pkts = []
+        while (pkt := fmt.next_packet()) is not None:
+            if pkt.track_id == track.id:
+                pkts.append(bytes(pkt.data))
+        ext = None
+        if native.available() and pkts:
+            sizes = np.array([len(p) for p in pkts], np.int64)
+            offs = np.zeros(len(pkts), np.int64)
+            np.cumsum(sizes[:-1], out=offs[1:])
+            ext = native.aac_extract(b"".join(pkts), offs, sizes,
+                                     dec.rate_idx, dec.bands_long,
+                                     dec.bands_short, C)
+            if ext is not None and ((ext["status"] != 0).any()
+                                    or (ext["nch"] != C).any()):
+                ext = None
+        if ext is not None:
+            F = ext["F"]
+            return dec, [{k: np.array(ext[k][:F, c], copy=True)
+                          for k in LANE_KEYS} for c in range(C)]
+        items = [[] for _ in range(C)]
+        for p in pkts:
+            try:
+                chans = dec.decode_coeffs(p)
+            except DecodeError:
+                continue
+            for c, item in enumerate(chans[:C]):
+                items[c].append(item)
+        return dec, [_oracle_lanes(it) for it in items]
+
+    def decode_bytes(self, data: bytes) -> DecodedAudio:
+        dec, chans = self._extract_host(data)
+        results: List[Optional[DecodedAudio]] = [None]
+        self._dispatch_merged(dec.bands_long, [(0, dec, chans)], results)
+        return results[0]
+
+    def decode_file(self, path: str) -> DecodedAudio:
+        with open(path, "rb") as f:
+            return self.decode_bytes(f.read())
+
+    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
+        """Merged-dispatch AAC decode: the (file, channel) frame sequences
+        of every stream with the same ``bands_long`` (sample-rate group)
+        become one lane batch; output per file equals ``decode_bytes``. An
+        undecodable stream raises what ``decode_bytes`` raises for it."""
+        results: List[Optional[DecodedAudio]] = [None] * len(datas)
+        groups = {}
+        for i, data in enumerate(datas):
+            dec, chans = self._extract_host(data)
+            key = tuple(int(b) for b in dec.bands_long)
+            groups.setdefault(key, []).append((i, dec, chans))
+        for bl, group in groups.items():
+            self._dispatch_merged(bl, group, results)
+        return results
+
+    def _dispatch_merged(self, bl, group, results) -> None:
+        """One dense pass over every lane of the group (``first`` marks
+        each sequence start), then split, and pad the channels of each
+        stream to one length."""
+        parts = {k: [] for k in LANE_KEYS}
+        firsts = []
+        for _, _, chans in group:
+            for ch in chans:
+                n = len(ch["seq"])
+                if not n:
+                    continue
+                for k in LANE_KEYS:
+                    parts[k].append(ch[k])
+                f = np.zeros(n, bool)
+                f[0] = True
+                firsts.append(f)
+        out = np.zeros((0, 1024), np.float32)
+        if firsts:
+            out = self.dense.decode_lanes(
+                {k: np.concatenate(v) for k, v in parts.items()},
+                np.concatenate(firsts), bl, self.LANE_CHUNK)
+        pos = 0
+        for idx, dec, chans in group:
+            lens = [len(ch["seq"]) for ch in chans]
+            pcm = np.zeros((len(chans), 1024 * max(lens, default=0)),
+                           np.float32)
+            for c, n in enumerate(lens):
+                pcm[c, : 1024 * n] = out[pos : pos + n].reshape(-1)
+                pos += n
+            results[idx] = DecodedAudio(pcm, dec.spec.rate, 32)
+
+
 def _audio_track_or_raise(fmt):
     """The default audio track, or Unsupported for containers that opened
     with only non-audio tracks."""
@@ -507,7 +650,8 @@ def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
 
 def _route(data: bytes) -> str:
     """Probe one stream -> 'flac' or 'mp3' for the batch pipelines (native
-    containers only, as in the reference), else a label of what it is."""
+    containers only, as in the reference), 'aac' in any container, else a
+    label of what it is."""
     import symphonia_tpu as sym
     from symphonia_tpu.formats.flac import FlacReader
     from symphonia_tpu.formats.mpa import MpaReader
@@ -519,6 +663,8 @@ def _route(data: bytes) -> str:
         return "flac"
     if codec == "mp3" and isinstance(fmt, MpaReader):
         return "mp3"
+    if codec == "aac":  # any container: the AAC decoder re-probes
+        return "aac"
     if codec in _NOT_PORTED:
         return codec
     return f"{codec} in {type(fmt).__name__}"
@@ -526,13 +672,15 @@ def _route(data: bytes) -> str:
 
 def decode_bytes(data: bytes, *, device, verify: bool = False
                  ) -> DecodedAudio:
-    """Decode one FLAC or MP3 Layer III stream on ``device``."""
+    """Decode one FLAC, MP3 Layer III or AAC-LC stream on ``device``."""
     resolve_device(device)
     route = _route(data)
     if route == "flac":
         return FlacBatchDecoder(device=device, verify=verify).decode_bytes(data)
     if route == "mp3":
         return Mp3BatchDecoder(device=device).decode_bytes(data)
+    if route == "aac":
+        return AacBatchDecoder(device=device).decode_bytes(data)
     raise _not_ported(route)
 
 
@@ -547,26 +695,22 @@ def decode_many(datas: Sequence[bytes], *, device,
     """Decode a batch of streams, merging device work across files.
 
     The serving entry point: streams are probed and grouped by codec;
-    FLAC and MP3 groups share merged dispatches. Output order matches input
-    order. Fail-fast: an undecodable stream raises what ``decode_bytes``
-    raises for it, and a codec outside the port raises
+    FLAC, MP3 and AAC groups each share merged dispatches. Output order
+    matches input order. Fail-fast: an undecodable stream raises what
+    ``decode_bytes`` raises for it, and a codec outside the port raises
     ``NotImplementedError`` before any decoding starts."""
     resolve_device(device)
     routes = [_route(d) for d in datas]
     for r in routes:
-        if r not in ("flac", "mp3"):
+        if r not in ("flac", "mp3", "aac"):
             raise _not_ported(r)
     results: List[Optional[DecodedAudio]] = [None] * len(datas)
-    flac_idx = [i for i, r in enumerate(routes) if r == "flac"]
-    mp3_idx = [i for i, r in enumerate(routes) if r == "mp3"]
-    if flac_idx:
-        merged = FlacBatchDecoder(device=device, verify=verify).decode_many(
-            [datas[i] for i in flac_idx])
-        for i, out in zip(flac_idx, merged):
-            results[i] = out
-    if mp3_idx:
-        merged = Mp3BatchDecoder(device=device).decode_many(
-            [datas[i] for i in mp3_idx])
-        for i, out in zip(mp3_idx, merged):
-            results[i] = out
+    for codec, dec in (
+            ("flac", FlacBatchDecoder(device=device, verify=verify)),
+            ("mp3", Mp3BatchDecoder(device=device)),
+            ("aac", AacBatchDecoder(device=device))):
+        idx = [i for i, r in enumerate(routes) if r == codec]
+        if idx:
+            for i, out in zip(idx, dec.decode_many([datas[i] for i in idx])):
+                results[i] = out
     return results

@@ -5,5 +5,8 @@ a plain PyTorch twin beside it.
   and stereo decorrelation (kernel F2).
 * ``mp3_dense`` — MP3 Layer III hybrid synthesis (kernel M1), and the fp32
   polyphase product fused with the synthesis overlap-add (kernel M2).
+* ``aac_dense`` — AAC-LC IMDCTs in fp32 with the handoff dequantization as
+  their prologue (kernel A1), that dequantization alone (A2), and the
+  window/overlap-add over many sequences in one launch (A3).
 * ``_build`` — nvcc build, ctypes loading and launch counts.
 """

@@ -34,7 +34,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
 
-KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth")
+KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
+           "aac_imdct", "aac_dequant", "aac_ola")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -56,6 +57,14 @@ _SIGNATURES = {
     "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _P],
     # S, M, tail0, boundary, pcm, tail_out, G, C, stream
     "mp3_synth_launch": [_P] * 6 + [_I, _I, _P],
+    # X, M, qbuf (None: no dequant prologue), scales, deq, sfb_map, pow43,
+    # Y, L, n, stream
+    "aac_imdct_launch": [_P] * 8 + [_I, _I, _P],
+    # coeffs, qbuf, scales, deq, sfb_map, pow43, out, L, stream
+    "aac_dequant_launch": [_P] * 7 + [_I, _P],
+    # pcm, seqs, shapes, prev_shapes, first, head, delay, s_first, s_left,
+    # s_right, out, L, stream
+    "aac_ola_launch": [_P] * 11 + [_I, _P],
 }
 
 

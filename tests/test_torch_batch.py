@@ -1,6 +1,7 @@
-"""The port's batch decode slice (FLAC + MP3 Layer III) on CPU against the
-JAX reference's ``symphonia_tpu.batch``: FLAC exact with equal MD5 verdicts,
-MP3 within the reference's dense-stage bar (atol 2e-5)."""
+"""The port's batch decode slices (FLAC, MP3 Layer III, AAC-LC) on CPU
+against the JAX reference's ``symphonia_tpu.batch``: FLAC exact with equal
+MD5 verdicts, MP3 within the reference's dense-stage bar (atol 2e-5), AAC
+within the reference's batch-decoder bar (atol 1e-5, test_aac.py:213)."""
 
 import functools
 import importlib.util
@@ -12,12 +13,14 @@ import pytest
 from symphonia_tpu import batch as ref
 from symphonia_tpu_torch import batch as port
 
+from aac_builder import build_adts, build_raw_block, random_quant_spectrum
 from flac_builder import build_flac_file, random_walk
 from mp3_builder import build_mpeg1_l3_stream
 
 # A real MPEG-2.5 mono file that ships with pygame's examples.
 HOUSE_MP3 = pathlib.Path(importlib.util.find_spec(
     "pygame").submodule_search_locations[0]) / "examples/data/house_lo.mp3"
+GOLDEN = pathlib.Path(__file__).resolve().parent / "golden_pcm.npz"
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,6 +149,133 @@ class TestMp3Slice:
             _close_mp3(got, _ref_one(d))
 
 
+@functools.lru_cache(maxsize=None)
+def _aacs():
+    """Small ADTS streams: (name, bytes), each a case the slice covers."""
+    rng = np.random.default_rng(40)
+    cyc = [0, 0, 0, 1, 2, 3]  # ONLY_LONG x3, LONG_START, EIGHT_SHORT, STOP
+
+    def frame(seqs, rate, shape=0, **kw):
+        quants = [random_quant_spectrum(rng, 12 if s == 2 else 40, rate, s)
+                  for s in seqs]
+        return build_raw_block(quants, seqs, 12 if 2 in seqs else 40, 140,
+                               rate, shape=shape, **kw)
+
+    mono = [frame([s], 44100, shape=int(rng.integers(0, 2)))
+            for s in cyc * 2]
+    stereo = [frame([0, 0], 44100) for _ in range(5)]
+    cycle = [frame([s, s], 44100, shape=int(rng.integers(0, 2)))
+             for s in cyc * 2]
+    k48 = [frame([s, s], 48000) for s in cyc]
+    k24 = [frame([s], 24000) for s in cyc]
+    spec0 = np.zeros(1024, np.int64)
+    spec0[0:12] = [3, -2, 1, 4, -1, 2, 1, -3, 2, 1, -1, 2]
+    spec1 = np.zeros(1024, np.int64)
+    spec1[0:4] = [1, -1, 2, 1]
+    # Intensity bands in channel 1 keep it host-dequantized (deq = 1)
+    # beside channel 0's handoff lanes (test_aac.py:284-287).
+    intensity = [build_raw_block([spec0, spec1], [0, 0], 12, 140, 44100,
+                                 special_books1={5: 14}) for _ in range(4)]
+    return (("mono_cycle", build_adts(mono, 44100, 1)),
+            ("stereo_cpe", build_adts(stereo, 44100, 2)),
+            ("stereo_cycle", build_adts(cycle, 44100, 2)),
+            ("stereo_48k", build_adts(k48, 48000, 2)),
+            ("intensity", build_adts(intensity, 44100, 2)),
+            ("mono_24k", build_adts(k24, 24000, 1)))
+
+
+def _close_aac(got, want, atol=1e-5):
+    assert got.samples.shape == want.samples.shape
+    assert got.sample_rate == want.sample_rate
+    assert got.samples.dtype == np.float32
+    np.testing.assert_allclose(got.samples, want.samples, atol=atol, rtol=0)
+
+
+class TestAacSlice:
+    @pytest.mark.parametrize("i", range(6))
+    def test_decode_bytes_matches_reference(self, i):
+        name, data = _aacs()[i]
+        got = port.AacBatchDecoder(device="cpu").decode_bytes(data)
+        _close_aac(got, ref.AacBatchDecoder().decode_bytes(data))
+        assert np.abs(got.samples).max() > 0
+
+    def test_decode_many_groups_rates_like_reference(self, monkeypatch):
+        # 44.1 and 48 kHz share their scalefactor bands, so one dispatch;
+        # 24 kHz is a second group.
+        datas = [d for _, d in _aacs()]
+        groups = []
+        real = port.AacBatchDecoder._dispatch_merged
+        monkeypatch.setattr(
+            port.AacBatchDecoder, "_dispatch_merged",
+            lambda self, bl, group, res: (groups.append(len(group)),
+                                          real(self, bl, group, res)))
+        merged = port.AacBatchDecoder(device="cpu").decode_many(datas)
+        assert sorted(groups) == [1, 5]
+        want = ref.AacBatchDecoder().decode_many(datas)
+        for got, w in zip(merged, want):
+            _close_aac(got, w)
+        assert [m.sample_rate for m in merged] == (
+            [44100] * 3 + [48000, 44100, 24000])
+
+    def test_decode_many_equals_each_alone(self):
+        # Guards the copy out of the pooled extraction buffers: the second
+        # stream's extraction must not overwrite the first's lanes.
+        a, b = _aacs()[1][1], _aacs()[2][1]
+        dec = port.AacBatchDecoder(device="cpu")
+        both = dec.decode_many([a, b])
+        for got, d in zip(both, (a, b)):
+            # The CPU product sums in another order for another row count.
+            _close_aac(got, dec.decode_bytes(d), atol=1e-6)
+
+    def test_surround_5p1(self):
+        from test_aac import TestSurroundLayouts
+
+        data = TestSurroundLayouts()._stream_5p1()
+        got = port.decode_bytes(data, device="cpu")
+        assert got.samples.shape == (6, 8192)
+        _close_aac(got, ref.AacBatchDecoder().decode_bytes(data))
+
+    def test_m4a_container(self):
+        from test_mp4 import build_m4a
+
+        rng = np.random.default_rng(41)
+        frames = [build_raw_block([random_quant_spectrum(rng, 40, 44100)],
+                                  [0], 40, 140, 44100) for _ in range(6)]
+        data = build_m4a(frames, 44100, 1)
+        got = port.decode_many([data], device="cpu")[0]
+        _close_aac(got, ref.AacBatchDecoder().decode_bytes(data))
+
+    def test_native_less_oracle_path(self, monkeypatch):
+        from symphonia_tpu import native
+
+        data = _aacs()[2][1]
+        want = ref.AacBatchDecoder().decode_bytes(data)
+        monkeypatch.setattr(native, "available", lambda: False)
+
+        def refuse(*a, **k):
+            raise AssertionError("native extraction used")
+
+        monkeypatch.setattr(native, "aac_extract", refuse)
+        _close_aac(port.AacBatchDecoder(device="cpu").decode_bytes(data),
+                   want)
+
+    @pytest.mark.parametrize("name", ["aac_44k_mono", "aac_48k_stereo"])
+    def test_golden_pcm(self, name):
+        # The entries of test_golden_pcm.corpus(), built the same way.
+        rate, ch, seed = {"aac_44k_mono": (44100, 1, 103),
+                          "aac_48k_stereo": (48000, 2, 104)}[name]
+        rng = np.random.default_rng(seed)
+        frames = [build_raw_block(
+            [random_quant_spectrum(rng, 40, rate) for _ in range(ch)],
+            [0] * ch, 40, 140, rate) for _ in range(6)]
+        got = port.decode_bytes(build_adts(frames, rate, ch), device="cpu")
+        with np.load(GOLDEN) as g:
+            want = g[f"{name}__pcm"]
+            assert got.sample_rate == int(g[f"{name}__rate"])
+        assert got.samples.shape == want.shape
+        np.testing.assert_allclose(got.samples, want, atol=1e-5, rtol=0)
+
+
 class TestFacade:
     def test_mixed_batch_keeps_input_order(self):
         flacs = _flacs()
@@ -164,6 +294,19 @@ class TestFacade:
                 _same_flac(got, _ref_one(d, True))
             else:
                 _close_mp3(got, _ref_one(d))
+
+    def test_mixed_batch_with_aac_keeps_input_order(self):
+        flacs, mp3s, aacs = _flacs(), _mp3s(), _aacs()
+        datas = [aacs[3][1], flacs[0][0], aacs[0][1], mp3s[0], aacs[2][1]]
+        outs = port.decode_many(datas, device="cpu", verify=True)
+        for d, got in zip(datas, outs):
+            one = port.decode_bytes(d, device="cpu", verify=True)
+            if got.samples.dtype == np.int32:
+                _same_flac(got, one)
+            else:
+                _close_mp3(got, one, atol=1e-6)
+        assert outs[1].md5_ok is True
+        _close_aac(outs[2], ref.AacBatchDecoder().decode_bytes(datas[2]))
 
     def test_decode_file(self, tmp_path):
         data, src = _flacs()[3]

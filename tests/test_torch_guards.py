@@ -24,6 +24,7 @@ def test_port_never_imports_jax():
         import numpy as np
         import symphonia_tpu_torch
         from symphonia_tpu_torch import batch
+        from aac_builder import build_adts, build_raw_block
         from flac_builder import build_flac_file
         from mp3_builder import build_mpeg1_l3_stream
         steps = np.random.default_rng(1).integers(-60, 61, size=(2, 1024))
@@ -31,10 +32,16 @@ def test_port_never_imports_jax():
         flac = build_flac_file(ch, block_size=256, stereo_mode="mid_side",
                                kind="fixed", order=2)
         mp3 = build_mpeg1_l3_stream(3, n_ch=2, seed=1)
-        out = batch.decode_many([flac, mp3], device="cpu", verify=True)
+        q = np.zeros(1024, np.int64)
+        q[:8] = [100, -500, 17, -16, 2000, -8000, 15, 1]
+        aac = build_adts([build_raw_block([q, -q], [s, s], 12, 140, 44100)
+                          for s in (0, 1, 2, 3)], 44100, 2)
+        out = batch.decode_many([flac, mp3, aac], device="cpu", verify=True)
         assert out[0].md5_ok is True and (out[0].samples == ch).all()
         assert out[1].samples.shape[0] == 2
         assert np.isfinite(out[1].samples).all()
+        assert out[2].samples.shape == (2, 4096)
+        assert np.isfinite(out[2].samples).all() and out[2].samples.any()
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
         assert not bad, bad
         print("ok")
@@ -63,6 +70,7 @@ def test_port_sources_import_no_jax():
 @pytest.mark.parametrize("make", [
     lambda: port.FlacBatchDecoder(device="cuda"),
     lambda: port.Mp3BatchDecoder(device="cuda"),
+    lambda: port.AacBatchDecoder(device="cuda"),
     lambda: port.decode_bytes(b"", device="cuda"),
 ])
 def test_cuda_without_cuda_raises(make):
@@ -93,6 +101,8 @@ def test_device_is_required():
     with pytest.raises(TypeError):
         port.Mp3BatchDecoder()
     with pytest.raises(TypeError):
+        port.AacBatchDecoder()
+    with pytest.raises(TypeError):
         port.decode_many([])
     with pytest.raises(ValueError):
         port.FlacBatchDecoder(device="meta")
@@ -115,7 +125,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_build_hash_follows_sources():
     srcs = _build._sources()
-    assert {s.name for s in srcs} >= {"flac_dense.cu", "mp3_dense.cu"}
+    assert {s.name for s in srcs} >= {"flac_dense.cu", "mp3_dense.cu",
+                                      "aac_dense.cu"}
     assert _build._source_hash(srcs) == _build._source_hash(srcs)
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
 
@@ -133,13 +144,12 @@ def _wav():
     return make_wav(rng.integers(-30000, 30000, size=(600, 2)), rate=8000)
 
 
-def _aac():
-    from aac_builder import build_adts, build_raw_block, random_quant_spectrum
+def _adpcm():
+    from test_adpcm import ima_encode, make_adpcm_wav, smooth_signal
 
-    rng = np.random.default_rng(31)
-    frames = [build_raw_block([random_quant_spectrum(rng, 40, 44100)], [0],
-                              40, 140, 44100) for _ in range(2)]
-    return build_adts(frames, 44100, 1)
+    sig = smooth_signal(1000, 31)
+    payload, block_align = ima_encode(sig)
+    return make_adpcm_wav(payload, 0x11, block_align, 505, len(sig))
 
 
 def _vorbis():
@@ -157,7 +167,7 @@ def _layer2():
 
 
 @pytest.mark.parametrize("make,item", [
-    (_wav, "item 4"), (_aac, "item 1"), (_vorbis, "item 2"),
+    (_wav, "item 4"), (_adpcm, "item 4"), (_vorbis, "item 2"),
     (_layer2, "item 3"),
 ])
 def test_codec_outside_slice_raises(make, item):
