@@ -6,19 +6,24 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (one line each; any failure raises and exits non-zero):
   1. environment: CUDA card, native host library, nvcc build of csrc/*.cu;
   2. each kernel (F1 flac_lpc, F2 flac_decorrelate, M1 mp3_hybrid,
-     M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola) against its
-     plain PyTorch twin on the card at the main path's shapes, with
-     CUDA-event times for both; the MP3 dense stage against the reference's
-     numpy oracle on a small input, and chained over two calls against one
-     call; A2 bit for bit against ``native.aac_dequant_host``, A3 against
-     the reference's sequential ``window_ola_chain``;
+     M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola, V1
+     vorbis_imdct, L1 mpa_l12_synth) against its plain PyTorch twin on the
+     card at the main path's shapes, with CUDA-event times for both; the
+     MP3 dense stage against the reference's numpy oracle on a small input,
+     and chained over two calls against one call; A2 bit for bit against
+     ``native.aac_dequant_host``, A3 against the reference's sequential
+     ``window_ola_chain``; V1 at both ends of the Vorbis block sizes (64 and
+     8192); L1 for Layer I and II, chained over calls (Layer I chunks of 1
+     and 2 frames included) against one call, and against the reference's
+     numpy polyphase;
   3. the slice: ``symphonia_tpu_torch.batch.decode_many`` on a mixed
-     FLAC + MP3 Layer III + AAC-LC batch built from a fixed seed with the
-     repo's test encoders, on ``device="cuda"``: FLAC bit-exact to the
-     source with STREAMINFO MD5 verified, MP3 and AAC against the port's
-     CPU-twin path, no host route, every kernel of the path launched
-     (A2 is not on the decode path, as in the reference, and is checked in
-     phase 2 only).
+     FLAC + MP3 Layer III + AAC-LC + Ogg Vorbis + MPEG Layer I/II batch
+     built from a fixed seed with the repo's test encoders, on
+     ``device="cuda"``: FLAC bit-exact to the source with STREAMINFO MD5
+     verified, MP3, AAC, Vorbis and Layer I/II against the port's CPU-twin
+     path, no host route, every kernel of the path launched, V1 for each of
+     the four Vorbis block sizes and L1 for Layer I and II (A2 is not on the
+     decode path, as in the reference, and is checked in phase 2 only).
 The line before the last is a JSON object of per-kernel results; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
 without a CUDA card or outside a checkout of the repository.
@@ -63,6 +68,16 @@ AAC_CYCLE = (0, 0, 0, 1, 2, 3)  # ONLY_LONG x3, LONG_START, EIGHT_SHORT, STOP
 AAC_SPECS = ([(44100, "cycle", s) for s in range(6)]
              + [(48000, "cycle", 6), (44100, "intensity", 7),
                 (24000, "cycle", 8)])
+VORBIS_SECONDS = 30
+# (sample rate, short and long block exponents, seed): stereo streams with
+# blocks of 256/2048 (libvorbis's usual pair at 44.1 kHz) and one at 48 kHz
+# with 512/4096, so the batch has four IMDCT block-size groups.
+VORBIS_SPECS = [(44100, 8, 11, s) for s in range(6)] + [(48000, 9, 12, 6)]
+# (kind, frames, seed): stereo 30 s streams of MPEG-1 Layer II (1152
+# samples a frame at 44.1 kHz), MPEG-1 Layer I (384) and MPEG-2 LSF Layer
+# II (1152 at 22.05 kHz).
+MPA_L12_SPECS = ([("l2", 1149, s) for s in range(4)]
+                 + [("l1", 3445, 4), ("l1", 3445, 5), ("l2_lsf", 574, 6)])
 
 # Kernel -> (route, source, the TPU program it replaces)
 KERNEL_INFO = {
@@ -81,6 +96,10 @@ KERNEL_INFO = {
                     "symphonia_tpu/ops/aac_dense.py:51"),
     "aac_ola": ("cuda", "symphonia_tpu_torch/csrc/aac_dense.cu",
                 "symphonia_tpu/ops/aac_dense.py:209"),
+    "vorbis_imdct": ("cuda", "symphonia_tpu_torch/csrc/vorbis_dense.cu",
+                     "symphonia_tpu/ops/vorbis_dense.py:21"),
+    "mpa_l12_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
+                      "symphonia_tpu/ops/mp3_dense.py:273"),
 }
 # Kernels the reference's decode path does not run (K9 serves only
 # dequant_select and its tests): checked in phase 2, not required in 3.
@@ -155,6 +174,104 @@ def build_aac(i: int) -> bytes:
         frames.append(build_raw_block(quants, [seq, seq], max_sfb, 140, rate,
                                       shape=int(rng.integers(0, 2))))
     return build_adts(frames, rate, 2)
+
+
+def build_vorbis(rate: int, bs0_exp: int, bs1_exp: int, seconds: float,
+                 seed: int) -> bytes:
+    """A stereo Ogg Vorbis stream of about ``seconds`` at ``rate``, blocks
+    of 2**bs0_exp and 2**bs1_exp samples.
+
+    The setup header and the audio packets are ``tests/vorbis_builder.py``'s
+    stereo variant (floor 0, residue 2, square-polar coupling); the
+    identification header is written here for the rate and block sizes.
+    Packets are rejection-sampled as ``test_vorbis_ogg``'s
+    ``_tame_stereo_stream`` does (floor amplitudes 1-4, kept only if the
+    spectra are finite and below 1e3): the raw builder's floor curves
+    overflow to inf. A quarter of the packets are short blocks, at random.
+    """
+    _paths()
+    import vorbis_builder as vb
+    from test_vorbis_ogg import _ogg_page
+
+    from symphonia_tpu.codecs.vorbis import VorbisDecoder
+    from symphonia_tpu.core.codecs import AudioCodecParameters
+
+    bw = vb.BitWriterLsb()
+    bw.write(0, 32)  # version
+    bw.write(2, 8)   # channels
+    bw.write(rate, 32)
+    bw.write(0, 96)  # bitrates
+    bw.write(bs0_exp, 4)
+    bw.write(bs1_exp, 4)
+    bw.write(1, 1)   # framing
+    ident = b"\x01vorbis" + bw.to_bytes()
+    vendor = b"chip_smoke"
+    comment = (b"\x03vorbis" + len(vendor).to_bytes(4, "little") + vendor
+               + (0).to_bytes(4, "little") + b"\x01")
+    setup = vb.build_setup_header_stereo()
+    params = AudioCodecParameters()
+    params.codec = "vorbis"
+    params.extra_data = ident + setup
+    dec = VorbisDecoder(params)
+    rng = np.random.default_rng(seed)
+    sizes = (1 << bs0_exp, 1 << bs1_exp)
+    pkts = []  # (packet, granule position after it)
+    total, prev = 0, None
+    while total < seconds * rate:
+        long_block = bool(rng.random() < 0.75)
+        # Residue 2 codes min(end, 2 * n2) values in partitions of 8.
+        parts = min(vb.R2_END, sizes[long_block]) // vb.PART_SIZE
+        for _ in range(200):
+            amps = (int(rng.integers(1, 5)), int(rng.integers(1, 5)))
+            fe = tuple((int(rng.integers(0, 16)), int(rng.integers(0, 16)))
+                       for _ in range(2))
+            ce = [int(rng.integers(0, 4)) for _ in range(parts // 2)]
+            pe = [[int(rng.integers(0, 16)) for _ in range(4)]
+                  for _ in range(parts)]
+            pkt = vb.build_audio_packet_stereo(long_block, amps, fe, ce, pe)
+            spectra, _ = dec.decode_spectra(pkt)
+            if np.isfinite(spectra).all() and np.abs(spectra).max() < 1e3:
+                break
+        else:
+            raise RuntimeError("no tame Vorbis packet in 200 tries")
+        if prev is not None:
+            total += (prev + sizes[long_block]) // 4
+        prev = sizes[long_block]
+        pkts.append((pkt, total))
+    serial = 0x5EED + seed
+    pages = [_ogg_page(serial, 0, 0, [ident], header_type=2),
+             _ogg_page(serial, 1, 0, [comment, setup])]
+    for i in range(0, len(pkts), 16):
+        chunk = pkts[i : i + 16]
+        pages.append(_ogg_page(serial, 2 + i // 16, chunk[-1][1],
+                               [p for p, _ in chunk],
+                               header_type=4 if i + 16 >= len(pkts) else 0))
+    return b"".join(pages)
+
+
+def build_mpa_l12(kind: str, frames: int, seed: int) -> bytes:
+    """A stereo Layer I or II stream of ``frames`` frames from the repo's
+    Layer I/II test builders (``tests/test_layer12.py``): random allocations,
+    scalefactors and samples per frame."""
+    _paths()
+    from test_layer12 import _rand_l2_frame, build_l1_frame
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for f in range(frames):
+        if kind == "l1":
+            # Twelve coded subbands a channel keep a stereo frame in size.
+            allocs = [[int(rng.choice([0, 2, 4, 8, 15])) if sb < 12 else 0
+                       for sb in range(32)] for _ in range(2)]
+            raws = [[[int(rng.integers(0, 1 << a)) if a else 0
+                      for _ in range(12)] for a in ch] for ch in allocs]
+            sfi = [[int(rng.integers(0, 60)) for _ in range(32)]
+                   for _ in range(2)]
+            out.append(build_l1_frame(raws, allocs, sfi, n_ch=2)[0])
+        else:
+            out.append(_rand_l2_frame(seed * 100003 + f, n_ch=2,
+                                      mpeg2=kind == "l2_lsf")[0])
+    return b"".join(out)
 
 
 def card_line() -> str:
@@ -479,20 +596,140 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
     return out
 
 
+def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
+    """V1 and L1 against their twins on the card: V1 at the main path's
+    block sizes and at both ends of the Vorbis range, L1 for Layer I and
+    II at F frames, chained over calls against one call, and against the
+    reference's numpy polyphase on a few frames."""
+    import torch
+
+    from symphonia_tpu.ops.mp3_dense import polyphase_response_np
+    from symphonia_tpu_torch.ops import mp3_dense as md
+    from symphonia_tpu_torch.ops import vorbis_dense as vd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    out, errs = {}, {}
+
+    # V1: spectra at the tamed builder streams' scale (|x| < 1e3). Bar: the
+    # Vorbis bar, 1e-6 of the larger of 1 and the twin's peak.
+    dense = vd.VorbisDense({}, dev)
+    v1_ms = {}
+    for n, lanes in ((2048, L), (256, L), (64, 4096), (8192, 2048)):
+        x = torch.from_numpy((rng.standard_normal((lanes, n // 2)) * 100.0)
+                             .astype(np.float32)).to(dev)
+        m = dense.matrix(n)
+        got = vd.vorbis_imdct(x, m)
+        ref = vd.vorbis_imdct_plain(x, m)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and got.shape == (lanes, n)):
+            raise AssertionError(f"vorbis_imdct n={n}: shape or not finite")
+        err = float((got - ref).abs().max())
+        bar = 1e-6 * max(1.0, float(ref.abs().max()))
+        if err > bar:
+            raise AssertionError(f"vorbis_imdct n={n}: {err} > {bar}")
+        errs[f"vorbis_imdct_{n}"] = err
+        v1_ms[f"{lanes}x{n // 2}->{n}"] = (
+            cuda_ms(lambda: vd.vorbis_imdct(x, m), 10),
+            cuda_ms(lambda: vd.vorbis_imdct_plain(x, m), 10))
+    main = f"{L}x1024->2048"
+    out["vorbis_imdct"] = dict(
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("vorbis")),
+        shape=[L, 1024], ms=v1_ms[main][0], plain_ms=v1_ms[main][1],
+        ms_by_case={k: [round(a, 4), round(b, 4)]
+                    for k, (a, b) in v1_ms.items()})
+
+    # L1 at F frames of C = 2 channels, subband samples at x0.1 with a
+    # carried tail; bar 2e-5 (the reference's).
+    C = 2
+    l12 = md.L12Dense.from_numpy(md.l12_tables(), dev)
+    l1_ms = {}
+    for T in (36, 12):
+        sb = torch.from_numpy((rng.standard_normal((F, C, 32, T)) * 0.1)
+                              .astype(np.float32)).to(dev)
+        t0 = torch.from_numpy((rng.standard_normal((C, 480)) * 0.1)
+                              .astype(np.float32)).to(dev)
+        poly = getattr(l12, f"polyphase_{T}")
+        pcm, tail = md.mpa_l12_synth(sb, poly, t0)
+        pcm_ref, tail_ref = md.l12_synth_plain(sb, poly, t0)
+        torch.cuda.synchronize()
+        err = max(float((pcm - pcm_ref).abs().max()),
+                  float((tail - tail_ref).abs().max()))
+        if err > 2e-5:
+            raise AssertionError(f"mpa_l12_synth T={T}: {err} > 2e-5")
+        errs[f"mpa_l12_synth_{T}"] = err
+        # Chained calls (Layer I: chunks of 1 and 2 frames first, where the
+        # tail reaches past the chunk) against the one call above.
+        cuts = [1, 3, F // 2] if T == 12 else [F // 2 + 3]
+        parts, st, a = [], t0, 0
+        for b in cuts + [F]:
+            p, st = md.mpa_l12_synth(sb[a:b], poly, st)
+            parts.append(p)
+            a = b
+        e_chain = max(float((torch.cat(parts) - pcm).abs().max()),
+                      float((st - tail).abs().max()))
+        if e_chain > 1e-6:
+            raise AssertionError(f"mpa_l12_synth T={T} chained: {e_chain}")
+        errs[f"mpa_l12_synth_{T}_chunks_vs_one_call"] = e_chain
+        # The reference's numpy polyphase over six frames of channel 0.
+        small = md.mpa_l12_synth(sb[:6].contiguous(), poly, None)[0]
+        expect = polyphase_response_np(np.concatenate(
+            list(sb[:6, 0].cpu().numpy()), axis=1))[: 6 * 32 * T]
+        e_np = float(np.abs(small[:, 0].reshape(-1).cpu().numpy()
+                            - expect).max())
+        if e_np > 2e-5:
+            raise AssertionError(f"mpa_l12_synth T={T} vs numpy: {e_np}")
+        errs[f"mpa_l12_synth_{T}_vs_numpy"] = e_np
+        l1_ms[f"T{T}"] = (cuda_ms(lambda: md.mpa_l12_synth(sb, poly, t0), 20),
+                          cuda_ms(lambda: md.l12_synth_plain(sb, poly, t0),
+                                  20))
+    out["mpa_l12_synth"] = dict(
+        max_abs_err=max(errs[f"mpa_l12_synth_{T}"] for T in (12, 36)),
+        shape=[F, C, 32, 36], ms=l1_ms["T36"][0], plain_ms=l1_ms["T36"][1],
+        ms_by_case={k: [round(a, 4), round(b, 4)]
+                    for k, (a, b) in l1_ms.items()})
+    print("phase 2 vorbis and layer I/II kernels vs twins:", json.dumps(
+        {**{k: {kk: (round(vv, 4) if kk.endswith("ms") else vv)
+                for kk, vv in v.items()} for k, v in out.items()},
+         **errs}), flush=True)
+    return out
+
+
 def build_inputs():
-    """FLAC, MP3 and AAC streams from the fixed seed, built in worker
-    processes (the slowest first)."""
+    """FLAC, MP3, AAC, Vorbis and Layer I/II streams from the fixed seed,
+    built in worker processes (the slowest first)."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=ctx) as pool:
         flac_f = [pool.submit(build_flac, i) for i in range(len(FLAC_SPECS))]
+        l12_f = [pool.submit(build_mpa_l12, kind, n, SEED + 400 + s)
+                 for kind, n, s in MPA_L12_SPECS]
+        vorbis_f = [pool.submit(build_vorbis, rate, e0, e1, VORBIS_SECONDS,
+                                SEED + 300 + s)
+                    for rate, e0, e1, s in VORBIS_SPECS]
         aac_f = [pool.submit(build_aac, i) for i in range(len(AAC_SPECS))]
         mp3_f = [pool.submit(build_mp3, i) for i in range(len(MP3_SPECS))]
         flacs = [f.result() for f in flac_f]
+        l12s = [f.result() for f in l12_f]
+        vorbis = [f.result() for f in vorbis_f]
         aacs = [f.result() for f in aac_f]
         mp3s = [f.result() for f in mp3_f]
-    return flacs, mp3s, aacs, time.perf_counter() - t0
+    return flacs, mp3s, aacs, vorbis, l12s, time.perf_counter() - t0
+
+
+def _spy(cls, name: str, seen: set, key):
+    """Wrap ``cls.name`` to add ``key(*args)`` to ``seen`` on each call;
+    returns the original, for restoring."""
+    real = getattr(cls, name)
+
+    def spy(*args, **kw):
+        seen.add(key(*args))
+        return real(*args, **kw)
+
+    setattr(cls, name, spy)
+    return real
 
 
 def phase_slice() -> dict:
@@ -500,28 +737,44 @@ def phase_slice() -> dict:
 
     from symphonia_tpu_torch import batch
     from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops.mp3_dense import L12Dense
+    from symphonia_tpu_torch.ops.vorbis_dense import VorbisDense
 
-    flacs, mp3s, aacs, build_s = build_inputs()
-    # The batch: FLAC entries cycle over the distinct streams, MP3 and AAC
-    # streams interleave, so input order is exercised across codecs.
+    flacs, mp3s, aacs, vorbis, l12s, build_s = build_inputs()
+    # The batch: FLAC entries cycle over the distinct streams, the other
+    # codecs' streams interleave, so input order is exercised across codecs.
     items = [("flac", i % len(flacs)) for i in range(N_FLAC_ENTRIES)]
     for j in range(len(mp3s)):
         items.insert(3 * j + 1, ("mp3", j))
     for j in range(len(aacs)):
         items.insert(7 * j + 2, ("aac", j))
-    src = {"flac": [f[0] for f in flacs], "mp3": mp3s, "aac": aacs}
+    for j in range(len(vorbis)):
+        items.insert(5 * j + 3, ("vorbis", j))
+    for j in range(len(l12s)):
+        items.insert(9 * j + 4, ("l12", j))
+    src = {"flac": [f[0] for f in flacs], "mp3": mp3s, "aac": aacs,
+           "vorbis": vorbis, "l12": l12s}
     datas = [src[kind][i] for kind, i in items]
     audio_s = 0.0
 
-    torch.cuda.synchronize()
-    batch.host_routes = 0
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    outs = batch.decode_many(datas, device="cuda", verify=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-    routes = batch.host_routes
+    # Which V1 block sizes and L1 frame widths the decode ran.
+    sizes, widths = set(), set()
+    real_imdct = _spy(VorbisDense, "imdct", sizes, lambda _, x, n: n)
+    real_l12 = _spy(L12Dense, "forward", widths,
+                    lambda _, sb, *a: sb.shape[3])
+    try:
+        torch.cuda.synchronize()
+        batch.host_routes = 0
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        outs = batch.decode_many(datas, device="cuda", verify=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        routes = batch.host_routes
+    finally:
+        VorbisDense.imdct = real_imdct
+        L12Dense.forward = real_l12
 
     if routes != 0:
         raise AssertionError(f"host_routes == {routes}")
@@ -531,7 +784,9 @@ def phase_slice() -> dict:
     if launches["aac_ola"] < 2:  # one dispatch per bands_long group
         raise AssertionError(f"aac: {launches['aac_ola']} dispatches for "
                              "two bands_long groups")
-    mp3_outs, aac_outs = [], []
+    if sizes != {256, 2048, 512, 4096} or widths != {12, 36}:
+        raise AssertionError(f"V1 block sizes {sizes}, L1 widths {widths}")
+    mp3_outs, aac_outs, vorbis_outs, l12_outs = [], [], [], []
     for (kind, i), out in zip(items, outs):
         audio_s += out.samples.shape[1] / out.sample_rate
         if kind == "flac":
@@ -540,10 +795,9 @@ def phase_slice() -> dict:
                 raise AssertionError(f"flac entry {i}: md5_ok={out.md5_ok}")
             if not np.array_equal(out.samples.astype(np.int64), src):
                 raise AssertionError(f"flac entry {i} differs from source")
-        elif kind == "mp3":
-            mp3_outs.append(out)
         else:
-            aac_outs.append(out)
+            {"mp3": mp3_outs, "aac": aac_outs, "vorbis": vorbis_outs,
+             "l12": l12_outs}[kind].append(out)
     # MP3 against the port's CPU-twin path (K = 576 fp32 sums in another
     # order; builder streams reach |pcm| ~ 6, hence 1e-4).
     cpu = batch.Mp3BatchDecoder(device="cpu").decode_many(mp3s)
@@ -573,15 +827,55 @@ def phase_slice() -> dict:
         e_aac = max(e_aac, float(np.abs(a.samples - b.samples).max()))
     if e_aac > 1e-5:
         raise AssertionError(f"aac vs CPU twin path: {e_aac} > 1e-5")
+    # Vorbis against the port's CPU-twin path, within 1e-6 of the larger of
+    # 1 and each stream's peak (the builder streams reach ~1e3-1e4); the
+    # first stream decoded alone equals its merged decode bit for bit.
+    t0 = time.perf_counter()
+    batch.VorbisBatchDecoder(device="cuda").decode_many(vorbis)
+    torch.cuda.synchronize()
+    vorbis_wall = time.perf_counter() - t0
+    cpu = batch.VorbisBatchDecoder(device="cpu").decode_many(vorbis)
+    e_vorbis = 0.0
+    for a, b in zip(vorbis_outs, cpu):
+        if a.samples.shape != b.samples.shape or a.samples.shape[0] != 2:
+            raise AssertionError("vorbis shape differs from the CPU twin path")
+        if not np.isfinite(a.samples).all() or not a.samples.any():
+            raise AssertionError("vorbis output not finite or all zero")
+        peak = max(1.0, float(np.abs(b.samples).max()))
+        e = float(np.abs(a.samples - b.samples).max())
+        if e > 1e-6 * peak:
+            raise AssertionError(f"vorbis vs CPU twin path: {e} > 1e-6 * "
+                                 f"{peak}")
+        e_vorbis = max(e_vorbis, e / peak)
+    alone = batch.decode_bytes(vorbis[0], device="cuda").samples
+    if not np.array_equal(alone, vorbis_outs[0].samples):
+        raise AssertionError("vorbis merged decode differs from per-file")
+    # Layer I/II against the port's CPU-twin path at the reference's bar.
+    cpu = batch.Mp3BatchDecoder(device="cpu").decode_many(l12s)
+    e_l12 = 0.0
+    for a, b in zip(l12_outs, cpu):
+        if a.samples.shape != b.samples.shape or a.samples.shape[0] != 2:
+            raise AssertionError("layer I/II shape differs from the CPU "
+                                 "twin path")
+        if not np.isfinite(a.samples).all() or not a.samples.any():
+            raise AssertionError("layer I/II output not finite or all zero")
+        e_l12 = max(e_l12, float(np.abs(a.samples - b.samples).max()))
+    if e_l12 > 2e-5:
+        raise AssertionError(f"layer I/II vs CPU twin path: {e_l12} > 2e-5")
     info = {
         "entries": len(datas), "flac_entries": N_FLAC_ENTRIES,
         "mp3_entries": len(mp3s), "aac_entries": len(aacs),
+        "vorbis_entries": len(vorbis), "layer12_entries": len(l12s),
         "input_build_s": round(build_s, 1),
         "wall_s": round(wall, 3), "audio_s": round(audio_s, 1),
         "realtime_x": round(audio_s / wall, 1), "host_routes": routes,
         "aac_only_wall_s": round(aac_wall, 3),
+        "vorbis_only_wall_s": round(vorbis_wall, 3),
         "launches": launches, "off_path": list(OFF_PATH),
+        "vorbis_block_sizes": sorted(sizes), "l12_widths": sorted(widths),
         "mp3_max_abs_err_vs_cpu": e_mp3, "aac_max_abs_err_vs_cpu": e_aac,
+        "vorbis_max_err_vs_cpu_over_peak": e_vorbis,
+        "layer12_max_abs_err_vs_cpu": e_l12,
         "card": card_line(),
     }
     print("phase 3 slice decode_many:", json.dumps(info), flush=True)
@@ -599,6 +893,7 @@ def main() -> int:
     env = phase_env()
     kern = phase_kernels()
     kern.update(phase_aac_kernels())
+    kern.update(phase_vorbis_l12_kernels())
     sl = phase_slice()
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():

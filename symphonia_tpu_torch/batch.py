@@ -1,16 +1,16 @@
 """Batch decode sessions on PyTorch: files -> PCM through the port's kernels.
 
-Port of ``symphonia_tpu/batch.py`` for FLAC, MP3 Layer III and AAC-LC. The
-host stage is the reference package's own (probe, demuxers, native C++
-entropy extraction); the dense stage runs on the ``device`` every decoder is
-given explicitly: the hand-written CUDA kernels on ``"cuda"``, their plain
-PyTorch twins on ``"cpu"``. Nothing picks a device or falls back to the CPU
-on its own.
+Port of ``symphonia_tpu/batch.py`` for FLAC, MPEG audio (Layers I, II and
+III), AAC-LC and Ogg Vorbis. The host stage is the reference package's own
+(probe, demuxers, native C++ entropy extraction); the dense stage runs on
+the ``device`` every decoder is given explicitly: the hand-written CUDA
+kernels on ``"cuda"``, their plain PyTorch twins on ``"cpu"``. Nothing picks
+a device or falls back to the CPU on its own.
 
 Only the cases where the reference itself leaves the device take the host
-route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed MP3
-stream, no native library for MP3. Each use adds one to ``host_routes``.
-Codecs outside this slice raise ``NotImplementedError``.
+route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed
+MPEG audio stream, no native library for MPEG audio. Each use adds one to
+``host_routes``. Other codecs and containers raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,26 +29,20 @@ from symphonia_tpu.core.io import MediaSourceStream
 from .ops import flac_dense
 from .ops.aac_dense import LANE_KEYS, AacDense
 from .ops.aac_dense import reference_tables as aac_tables
-from .ops.mp3_dense import Mp3Dense, reference_tables
+from .ops.mp3_dense import L12Dense, Mp3Dense, l12_tables, reference_tables
+from .ops.vorbis_dense import (VorbisDense, decode_packets_dense,
+                               decode_packets_dense_multi)
 
 logger = logging.getLogger("symphonia_tpu_torch.batch")
 
 # Decodes that took the exact host route (see module docstring).
 host_routes = 0
 
-_NOT_PORTED = {
-    "vorbis": "Vorbis batch decode (ROADMAP.md Queue 1 item 2)",
-    "mp1": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
-    "mp2": "MPEG Layer I/II batch decode (ROADMAP.md Queue 1 item 3)",
-}
-_OTHER = ("per-packet decode of other codecs and containers "
-          "(ROADMAP.md Queue 1 item 4)")
-
 
 def _not_ported(codec) -> NotImplementedError:
-    what = _NOT_PORTED.get(codec, _OTHER)
-    return NotImplementedError(f"{codec!r}: {what} is not ported to "
-                               "symphonia_tpu_torch yet")
+    return NotImplementedError(
+        f"{codec!r}: per-packet decode of other codecs and containers "
+        "(ROADMAP.md Queue 1 item 4) is not ported to symphonia_tpu_torch yet")
 
 
 def resolve_device(device) -> torch.device:
@@ -322,9 +316,12 @@ class FlacBatchDecoder:
 
 
 class Mp3BatchDecoder:
-    """Whole-file MP3 Layer III decode: native C++ entropy stage, then the
-    granule-parallel dense stage (:class:`ops.mp3_dense.Mp3Dense`) in
-    chained chunks of ``granule_chunk`` granules (a memory bound)."""
+    """Whole-file MPEG audio decode. Layer III: native C++ entropy stage,
+    then the granule-parallel dense stage (:class:`ops.mp3_dense.Mp3Dense`)
+    in chained chunks of ``granule_chunk`` granules (a memory bound).
+    Layers I and II: the native per-frame bitstream stage, then the
+    frame-parallel polyphase stage (:class:`ops.mp3_dense.L12Dense`) in
+    chained chunks of ``granule_chunk`` frames."""
 
     def __init__(self, *, device, granule_chunk: int = 4096,
                  gapless: bool = True):
@@ -332,12 +329,19 @@ class Mp3BatchDecoder:
         self.granule_chunk = granule_chunk
         self.gapless = gapless
         self._dense: Optional[Mp3Dense] = None
+        self._l12: Optional[L12Dense] = None
 
     @property
     def dense(self) -> Mp3Dense:
         if self._dense is None:
             self._dense = Mp3Dense.from_numpy(reference_tables(), self.device)
         return self._dense
+
+    @property
+    def l12(self) -> L12Dense:
+        if self._l12 is None:
+            self._l12 = L12Dense.from_numpy(l12_tables(), self.device)
+        return self._l12
 
     def _reader(self, data: bytes):
         from symphonia_tpu.core.formats import FormatOptions
@@ -390,7 +394,7 @@ class Mp3BatchDecoder:
         reader = self._reader(data)
         h = reader.header
         if h.layer != LAYER3:
-            raise _not_ported(f"mp{h.layer}")
+            return self._decode_l12(data, reader)
         if not native.available():
             return _host_decode(data, self.gapless)
         got = self._extract(reader)
@@ -399,6 +403,60 @@ class Mp3BatchDecoder:
         pcm = self._dense_chunked(*got)
         C = h.n_channels
         pcm = pcm.transpose(1, 0, 2).reshape(C, -1)
+        pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
+        return DecodedAudio(pcm, h.sample_rate, 32)
+
+    def _decode_l12(self, data: bytes, reader) -> DecodedAudio:
+        """Layer I/II: the native bitstream stage frame by frame, then L1
+        over chunks of ``granule_chunk`` frames with the synthesis tail
+        carried on the device. The stream takes the counted host route,
+        where the reference falls back to its sequential decoder, when the
+        native library is missing or rejects a frame, a header does not
+        parse, or a frame has another channel count or layer."""
+        from symphonia_tpu import native
+        from symphonia_tpu.codecs.mpa_common import LAYER1, parse_header
+        from symphonia_tpu.codecs.mpa_layer12 import (_find_sb_info,
+                                                      _intensity_bound,
+                                                      tables)
+
+        if not native.available():
+            return _host_decode(data, self.gapless)
+        h = reader.header
+        C = h.n_channels
+        buf = reader._buf
+        sf_table = tables()["layer12_scalefactors"]
+        frames = []
+        for off, size in zip(reader._offsets, reader._sizes):
+            frame = bytes(buf[off : off + size])
+            try:
+                fh = parse_header(int.from_bytes(frame[:4], "big"))
+            except DecodeError:
+                return _host_decode(data, self.gapless)
+            pos = 4 + (2 if fh.has_crc else 0)
+            if fh.layer == LAYER1:
+                layer, T, sblimit, rows = 1, 12, 32, None
+                bound = min(_intensity_bound(fh), 32)
+            else:
+                layer, T = 2, 36
+                sblimit, rows = _find_sb_info(fh)
+                bound = min(_intensity_bound(fh), sblimit)
+            s = native.mpa_l12_extract(
+                layer, bytes(frame[pos : fh.frame_size]), fh.n_channels,
+                bound, sblimit, rows, sf_table)
+            if s is None or fh.n_channels != C or fh.layer != h.layer:
+                return _host_decode(data, self.gapless)
+            # The extraction's output is pooled: copy before the next call.
+            frames.append(s[:C].reshape(C, 32, T).copy())
+        if not frames:
+            return _host_decode(data, self.gapless)
+        sb = np.stack(frames)  # [F, C, 32, T]
+        parts = []
+        tail = None
+        for i in range(0, len(sb), self.granule_chunk):
+            pcm, tail = self.l12(torch.from_numpy(
+                sb[i : i + self.granule_chunk]).to(self.device), tail)
+            parts.append(pcm.cpu().numpy())
+        pcm = np.concatenate(parts).transpose(1, 0, 2).reshape(C, -1)
         pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
         return DecodedAudio(pcm, h.sample_rate, 32)
 
@@ -596,6 +654,106 @@ class AacBatchDecoder:
             results[idx] = DecodedAudio(pcm, dec.spec.rate, 32)
 
 
+class VorbisBatchDecoder:
+    """Whole-stream Ogg Vorbis decode: the reference's host entropy stage
+    (floors, residues, coupling), then the dense stage
+    (:mod:`ops.vorbis_dense`): one V1 IMDCT per distinct block size over
+    the packet-channel lanes of every stream, in chunks of
+    ``vorbis_dense.LANE_CHUNK`` lanes, and the reference's numpy lap stitch
+    per stream."""
+
+    def __init__(self, *, device):
+        self.device = resolve_device(device)
+        self.dense = VorbisDense({}, self.device)
+
+    @staticmethod
+    def _extract_host(data: bytes):
+        """Host stage for one stream: (track, decoder, per-packet spectra
+        [C, n/2], block flags, per-packet (trim_start, trim_end)).
+
+        The native bulk entropy call returns fresh arrays (not pooled), so
+        the spectra can wait for other streams. Without the native library,
+        or when a packet is malformed, the reference's Python oracle
+        decodes the spectra instead, skipping undecodable packets (and
+        their trims) as the reference's decode loop does."""
+        from symphonia_tpu import native
+        from symphonia_tpu.codecs.vorbis import VorbisDecoder
+        from symphonia_tpu.formats.ogg import OggReader
+
+        reader = OggReader(MediaSourceStream(data))
+        track = _audio_track_or_raise(reader)
+        if track.codec_params.codec != "vorbis":
+            raise DecodeError("not a Vorbis stream")
+        dec = VorbisDecoder(track.codec_params)
+        pkts, trims = [], []
+        while (pkt := reader.next_packet()) is not None:
+            if pkt.track_id == track.id:
+                pkts.append(bytes(pkt.data))
+                trims.append((pkt.trim_start, pkt.trim_end))
+        ext = native.vorbis_decode_spectra(dec, pkts)
+        if ext is not None and (ext[2] != 0).any():
+            ext = None
+        spectra, flags = [], []
+        if ext is not None:
+            sp_all, fl_all, _ = ext
+            for i in range(len(pkts)):
+                n2 = (dec.bs1 if fl_all[i] else dec.bs0) // 2
+                spectra.append(sp_all[i, :, :n2])
+                flags.append(bool(fl_all[i]))
+            return track, dec, spectra, flags, trims
+        kept = []
+        for p, tr in zip(pkts, trims):
+            try:
+                sp, flag = dec.decode_spectra(p)
+            except DecodeError:
+                continue
+            spectra.append(sp)
+            flags.append(flag)
+            kept.append(tr)
+        return track, dec, spectra, flags, kept
+
+    @staticmethod
+    def _finish(track, pcm: np.ndarray, trims) -> DecodedAudio:
+        """Trims (the trim_end sum from the tail, then the trim_start sum
+        from the head), then Vorbis channel order -> output order."""
+        from symphonia_tpu.codecs.vorbis import _CHANNEL_MAP
+
+        total_trim_end = sum(t[1] for t in trims)
+        if total_trim_end:
+            pcm = pcm[:, : pcm.shape[1] - total_trim_end]
+        total_trim_start = sum(t[0] for t in trims)
+        if total_trim_start:
+            pcm = pcm[:, total_trim_start:]
+        chmap = _CHANNEL_MAP.get(pcm.shape[0], list(range(pcm.shape[0])))
+        out = np.zeros_like(pcm)
+        for src, dst in enumerate(chmap):
+            out[dst] = pcm[src]
+        return DecodedAudio(out, track.codec_params.sample_rate, 32)
+
+    def decode_bytes(self, data: bytes) -> DecodedAudio:
+        track, dec, spectra, flags, trims = self._extract_host(data)
+        pcm = decode_packets_dense(spectra, flags, dec.bs0, dec.bs1,
+                                   dense=self.dense)
+        return self._finish(track, pcm, trims)
+
+    def decode_file(self, path: str) -> DecodedAudio:
+        with open(path, "rb") as f:
+            return self.decode_bytes(f.read())
+
+    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
+        """Merged-dispatch Vorbis decode: the packet-channel lanes of every
+        stream group by block size across files, one IMDCT per distinct
+        size; output per file equals ``decode_bytes``. An undecodable
+        stream raises what ``decode_bytes`` raises for it."""
+        got = [self._extract_host(d) for d in datas]
+        pcms = decode_packets_dense_multi(
+            [(spectra, flags, dec.bs0, dec.bs1)
+             for _, dec, spectra, flags, _ in got],
+            dense=self.dense)
+        return [self._finish(track, pcm, trims)
+                for (track, _, _, _, trims), pcm in zip(got, pcms)]
+
+
 def _audio_track_or_raise(fmt):
     """The default audio track, or Unsupported for containers that opened
     with only non-audio tracks."""
@@ -606,9 +764,10 @@ def _audio_track_or_raise(fmt):
 
 
 def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
-    """Exact per-packet host decode of a FLAC or MP3 stream, for the cases
-    where the reference also leaves the device. Builds the decoder directly
-    (the reference's codec registry would import the JAX package)."""
+    """Exact per-packet host decode of a FLAC or MPEG audio stream, for the
+    cases where the reference also leaves the device. Builds the decoder
+    directly (the reference's codec registry would import the JAX
+    package)."""
     global host_routes
     import symphonia_tpu as sym
     from symphonia_tpu.core.formats import FormatOptions
@@ -648,39 +807,46 @@ def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
                         track.codec_params.bits_per_sample or 32)
 
 
+_MPA = ("mp1", "mp2", "mp3")
+
+
 def _route(data: bytes) -> str:
-    """Probe one stream -> 'flac' or 'mp3' for the batch pipelines (native
-    containers only, as in the reference), 'aac' in any container, else a
-    label of what it is."""
+    """Probe one stream -> 'flac', 'mp1'/'mp2'/'mp3' or 'vorbis' for the
+    batch pipelines (native containers only, as in the reference), 'aac'
+    in any container, else a label of what it is."""
     import symphonia_tpu as sym
     from symphonia_tpu.formats.flac import FlacReader
     from symphonia_tpu.formats.mpa import MpaReader
+    from symphonia_tpu.formats.ogg import OggReader
 
     fmt = sym.get_probe().probe(MediaSourceStream(data)).format
     track = _audio_track_or_raise(fmt)
     codec = track.codec_params.codec
     if codec == "flac" and isinstance(fmt, FlacReader):
         return "flac"
-    if codec == "mp3" and isinstance(fmt, MpaReader):
-        return "mp3"
+    if codec in _MPA and isinstance(fmt, MpaReader):
+        return codec
+    if codec == "vorbis" and isinstance(fmt, OggReader):
+        return "vorbis"
     if codec == "aac":  # any container: the AAC decoder re-probes
         return "aac"
-    if codec in _NOT_PORTED:
-        return codec
     return f"{codec} in {type(fmt).__name__}"
 
 
 def decode_bytes(data: bytes, *, device, verify: bool = False
                  ) -> DecodedAudio:
-    """Decode one FLAC, MP3 Layer III or AAC-LC stream on ``device``."""
+    """Decode one FLAC, MPEG audio (Layer I, II or III), AAC-LC or Ogg
+    Vorbis stream on ``device``."""
     resolve_device(device)
     route = _route(data)
     if route == "flac":
         return FlacBatchDecoder(device=device, verify=verify).decode_bytes(data)
-    if route == "mp3":
+    if route in _MPA:
         return Mp3BatchDecoder(device=device).decode_bytes(data)
     if route == "aac":
         return AacBatchDecoder(device=device).decode_bytes(data)
+    if route == "vorbis":
+        return VorbisBatchDecoder(device=device).decode_bytes(data)
     raise _not_ported(route)
 
 
@@ -695,21 +861,23 @@ def decode_many(datas: Sequence[bytes], *, device,
     """Decode a batch of streams, merging device work across files.
 
     The serving entry point: streams are probed and grouped by codec;
-    FLAC, MP3 and AAC groups each share merged dispatches. Output order
-    matches input order. Fail-fast: an undecodable stream raises what
-    ``decode_bytes`` raises for it, and a codec outside the port raises
-    ``NotImplementedError`` before any decoding starts."""
+    FLAC, MP3 Layer III, AAC and Vorbis groups each share merged
+    dispatches, and Layer I/II streams decode one by one, as in the
+    reference. Output order matches input order. Fail-fast: an undecodable
+    stream raises what ``decode_bytes`` raises for it, and a codec outside
+    the port raises ``NotImplementedError`` before any decoding starts."""
     resolve_device(device)
     routes = [_route(d) for d in datas]
     for r in routes:
-        if r not in ("flac", "mp3", "aac"):
+        if r not in ("flac", "aac", "vorbis") + _MPA:
             raise _not_ported(r)
     results: List[Optional[DecodedAudio]] = [None] * len(datas)
-    for codec, dec in (
-            ("flac", FlacBatchDecoder(device=device, verify=verify)),
-            ("mp3", Mp3BatchDecoder(device=device)),
-            ("aac", AacBatchDecoder(device=device))):
-        idx = [i for i, r in enumerate(routes) if r == codec]
+    for codecs, dec in (
+            (("flac",), FlacBatchDecoder(device=device, verify=verify)),
+            (_MPA, Mp3BatchDecoder(device=device)),
+            (("aac",), AacBatchDecoder(device=device)),
+            (("vorbis",), VorbisBatchDecoder(device=device))):
+        idx = [i for i, r in enumerate(routes) if r in codecs]
         if idx:
             for i, out in zip(idx, dec.decode_many([datas[i] for i in idx])):
                 results[i] = out

@@ -14,11 +14,11 @@
 // What bounds A1: arithmetic, 2.1M multiply-adds per long row against 4 KB
 // of input (the matrix, 8 MB, stays in L2). The reference's bar (1e-5 on
 // outputs near 0.12) needs true fp32, which the tensor cores do not offer
-// (TF32 keeps ~10 mantissa bits), so A1 is a SIMT GEMM as M2 is: a 64 x 128
-// output tile per 256-thread block, 32-deep K slabs of X and M staged
-// transposed in odd-strided (conflict-free) shared memory, a 4 x 8 register
-// tile per thread. The prologue gathers from the 32 KiB pow43 table and the
-// sfb map, both staged in shared memory once per block.
+// (TF32 keeps ~10 mantissa bits), so A1 is a SIMT GEMM as M2 is: the
+// 64 x 128 tile of simt_gemm.cuh (shared with V1 vorbis_imdct), 32-deep K
+// slabs staged transposed in odd-strided (conflict-free) shared memory, a
+// 4 x 8 register tile per thread. The prologue gathers from the 32 KiB
+// pow43 table and the sfb map, both staged in shared memory once per block.
 //
 // A2 aac_dequant replaces _dequant_jax (:51, K9): the prologue alone,
 // written out as [L, 1024] coefficients. It is the same device function
@@ -44,6 +44,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "simt_gemm.cuh"
+
 namespace {
 
 constexpr int kLong = 1024;      // long-window coefficients per frame
@@ -67,15 +69,34 @@ __device__ __forceinline__ float dequant_one(int q, float scale,
 
 // ----- A1 -------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;         // output rows per block
-constexpr int kBN = 128;        // output columns per block; 2n % 128 == 0
-constexpr int kBK = 32;         // K slab
-constexpr int kAPad = kBM + 1;  // odd strides: the transposing stores
-constexpr int kBPad = kBN + 1;  // below hit 32 distinct banks
-constexpr int kSlabFloats = kBK * kAPad + kBK * kBPad;
-constexpr int kSmemPlain = kSlabFloats * 4;
+using simt_gemm::kBK;
+using simt_gemm::kBM;
+using simt_gemm::kBN;
+using simt_gemm::kThreads;
+constexpr int kSmemPlain = simt_gemm::kSlabFloats * 4;
 constexpr int kSmemDeq = kSmemPlain + kPow43 * 4 + kLong * 4;
+
+// The prologue's A rows: a handoff row (deq == 0) is dequantized from its
+// quants while it loads, any other row is read from X.
+struct DequantA {
+  const float* __restrict__ X;
+  const int16_t* __restrict__ qbuf;
+  const float* __restrict__ scales;
+  const int32_t* sfb;   // shared memory
+  const float* pow43;   // shared memory
+  bool handoff[2];      // per load slot
+  __device__ __forceinline__ float4 operator()(int s, int64_t row,
+                                               int k) const {
+    if (!handoff[s])
+      return *reinterpret_cast<const float4*>(X + row * kLong + k);
+    const short4 q = *reinterpret_cast<const short4*>(qbuf + row * kLong + k);
+    const float* sc = scales + row * kSfbs;
+    return make_float4(dequant_one(q.x, sc[sfb[k + 0]], pow43),
+                       dequant_one(q.y, sc[sfb[k + 1]], pow43),
+                       dequant_one(q.z, sc[sfb[k + 2]], pow43),
+                       dequant_one(q.w, sc[sfb[k + 3]], pow43));
+  }
+};
 
 template <bool kDeq>
 __global__ void __launch_bounds__(kThreads)
@@ -88,94 +109,27 @@ aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
                  int L, int n) {
   extern __shared__ float smem[];
   float* As = smem;
-  float* Bs = As + kBK * kAPad;
-  float* pow43 = Bs + kBK * kBPad;
-  int32_t* sfb = reinterpret_cast<int32_t*>(pow43 + kPow43);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  float* Bs = As + kBK * simt_gemm::kAPad;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
   const int col0 = blockIdx.y * kBN;
-  if (kDeq) {  // read after the first __syncthreads of the K loop
-    for (int i = tid; i < kPow43; i += kThreads) pow43[i] = pow43_g[i];
-    for (int i = tid; i < kLong; i += kThreads) sfb[i] = sfb_map[i];
+  int64_t rows[2];
+  simt_gemm::a_rows(row0, L, rows);
+  float acc[4][8] = {};
+  if constexpr (kDeq) {
+    float* pow43 = Bs + kBK * simt_gemm::kBPad;
+    int32_t* sfb = reinterpret_cast<int32_t*>(pow43 + kPow43);
+    // Read after the first __syncthreads of the K loop.
+    for (int i = threadIdx.x; i < kPow43; i += kThreads) pow43[i] = pow43_g[i];
+    for (int i = threadIdx.x; i < kLong; i += kThreads) sfb[i] = sfb_map[i];
+    const DequantA load{X, qbuf, scales, sfb, pow43,
+                        {rows[0] >= 0 && deq[rows[0]] == 0,
+                         rows[1] >= 0 && deq[rows[1]] == 0}};
+    simt_gemm::tile_product(load, rows, M, n, 2 * n, col0, As, Bs, acc);
+  } else {
+    simt_gemm::tile_product(simt_gemm::RowsA{X, n}, rows, M, n, 2 * n, col0,
+                            As, Bs, acc);
   }
-  // This thread loads float4 number (tid + s * 256) of each 64 x 32 A slab:
-  // row (tid + s * 256) / 8, columns 4 * ((tid + s * 256) % 8) + 0..3.
-  int64_t a_rows[2];
-  bool handoff[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int64_t r = row0 + ((tid + s * kThreads) >> 3);
-    a_rows[s] = r < L ? r : -1;
-    handoff[s] = kDeq && r < L && deq[r] == 0;
-  }
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const float* m_base = M + static_cast<int64_t>(col0) * n;
-
-  for (int k0 = 0; k0 < n; k0 += kBK) {
-    __syncthreads();  // the previous slab has been read
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int f = tid + s * kThreads;
-      const int m = f >> 3, kq = f & 7;
-      const int k = k0 + kq * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (a_rows[s] >= 0) {
-        if (kDeq && handoff[s]) {
-          const short4 q = *reinterpret_cast<const short4*>(
-              qbuf + a_rows[s] * kLong + k);
-          const float* sc = scales + a_rows[s] * kSfbs;
-          v.x = dequant_one(q.x, sc[sfb[k + 0]], pow43);
-          v.y = dequant_one(q.y, sc[sfb[k + 1]], pow43);
-          v.z = dequant_one(q.z, sc[sfb[k + 2]], pow43);
-          v.w = dequant_one(q.w, sc[sfb[k + 3]], pow43);
-        } else {
-          v = *reinterpret_cast<const float4*>(X + a_rows[s] * n + k);
-        }
-      }
-      As[(kq * 4 + 0) * kAPad + m] = v.x;
-      As[(kq * 4 + 1) * kAPad + m] = v.y;
-      As[(kq * 4 + 2) * kAPad + m] = v.z;
-      As[(kq * 4 + 3) * kAPad + m] = v.w;
-    }
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {  // B: 128 rows of M x 8 float4
-      const int f = tid + s * kThreads;
-      const int c = f >> 3, kq = f & 7;
-      const float4 v = *reinterpret_cast<const float4*>(
-          m_base + static_cast<int64_t>(c) * n + k0 + kq * 4);
-      Bs[(kq * 4 + 0) * kBPad + c] = v.x;
-      Bs[(kq * 4 + 1) * kBPad + c] = v.y;
-      Bs[(kq * 4 + 2) * kBPad + c] = v.z;
-      Bs[(kq * 4 + 3) * kBPad + c] = v.w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * kAPad + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * kBPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  const int64_t ld = 2 * static_cast<int64_t>(n);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = row0 + ty * 4 + i;
-    if (r >= L) break;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Y[r * ld + col0 + tx + 16 * j] = acc[i][j];
-  }
+  simt_gemm::store_tile(Y, acc, row0, L, col0, 2 * n);
 }
 
 // ----- A2 -------------------------------------------------------------

@@ -1,6 +1,7 @@
-// MP3 Layer III dense stage for Hopper (sm_90a): kernels M1 and M2.
-// Together they replace symphonia_tpu/ops/mp3_dense.py:346
-// mp3_dense_batch_jax, its polyphase product included.
+// MPEG audio dense stages for Hopper (sm_90a): kernels M1 and M2 (Layer
+// III) and L1 (Layer I/II). M1 and M2 together replace
+// symphonia_tpu/ops/mp3_dense.py:346 mp3_dense_batch_jax (K5), its
+// polyphase product included; L1 replaces :273 l12_dense_batch_jax (K11).
 //
 // M1 mp3_hybrid (steps 1-4 of the reference, plus the operand layout of
 // step 5): for each (granule g, channel c) of x [G, C, 576] (sample index
@@ -24,25 +25,44 @@
 // granule-channel per block iteration keeps every load and store
 // coalesced (the reference's granule-minor layout was for TPU lanes).
 //
-// M2 mp3_synth (steps 5-6): the [G*C, 576] x [576, 1056] polyphase product
-// with the 480-sample synthesis overlap-add fused into it. With M the
-// combined polyphase matrix [1056, 576] and rows r = g*C + c of S:
-//   pcm[r, j] = S[r].M[j] + prev[r, j]   for j < 480
-//   pcm[r, j] = S[r].M[j]                for 480 <= j < 576
-//   prev[r, j] = S[r-C].M[576+j] for g > 0, tail0[c, j] at g = 0,
-//                0 where boundary[g]
-//   tail_out[c, j] = S[(G-1)*C + c].M[576+j]
-// The response's last 480 columns never reach device memory. The tail
-// rows run as a virtual granule G with no product of its own, so every
-// S[r-C].M[576+j] sum comes from the same accumulator and the same loop:
-// a stream chained over calls adds the very bits one call would.
-// What bounds M2: arithmetic, about 608K multiply-adds per granule-channel
-// against 4.6 KB of S read and 2.3 KB of pcm written; M (2.4 MB) stays in
-// L2. The reference's bar (2e-5) needs true fp32, which the tensor cores
-// do not offer (TF32 keeps ~10 mantissa bits), so M2 is a SIMT GEMM: a
-// 64 x 96 output tile per 256-thread block, 32-deep K slabs of S and M
-// staged in padded (conflict-free) shared memory, a 4 x 6 register tile
-// per thread with one accumulator for the own product and one for prev.
+// M2 mp3_synth (steps 5-6) and L1 mpa_l12_synth (which replaces
+// symphonia_tpu/ops/mp3_dense.py:273 l12_dense_batch_jax, K11) are one
+// body, synth_kernel<T>, for T subband samples per granule or frame: 18
+// (Layer III granules, M2), 12 (Layer I frames) and 36 (Layer II frames).
+// With n = 32 T, M the combined polyphase matrix [n + 480, n]
+// (_polyphase_combined_matrix(T), its K axis in the operand's order) and
+// rows r = g*C + c of the operand S [F*C, n], each frame's response is
+// S[r].M^T: its first n columns are the frame's own PCM, the last 480
+// overlap the next KS = ceil(480 / n) frames (1 for T = 18 and 36, 2 for
+// T = 12). So
+//   pcm[r, j] = S[r].M[j] + prev(g, j),  prev = term_1 + ... + term_KS
+//   term_k = S[r - kC].M[kn + j]  if 0 <= g - k < F (and kn + j < n + 480)
+//          = tail0[c, gn + j]     if g - k == -1 and gn + j < 480
+//          = 0                    otherwise,
+// where the carried tail0 stands in for all the frames before the call.
+// M2 also takes boundary [G]: term_1 is 0 where boundary[g] (a new stream
+// starts), and tail0 is not used where boundary[0]. The response's last 480
+// columns never reach device memory: the block that owns row r computes
+// each term_k itself, as a K pass over S[r - kC]. The outgoing tail comes
+// from KS virtual frames F.. F+KS-1 with no product of their own:
+//   tail_out[c, (g - F) n + j] = prev(g, j)  for (g - F) n + j < 480.
+// Every term comes from the same accumulator and loop whichever call
+// computes it, and prev sums the terms in one order, so a stream chained
+// over calls adds the very bits one call would. For Layer I (n = 384),
+// output columns 0-95 take three K passes and 96-383 take two; its tail
+// spans two virtual frames, and with F = 1 the carried tail's last 96
+// samples pass straight into the outgoing tail.
+// What bounds M2 and L1: arithmetic, about 608K (M2), 332K (Layer I) and
+// 1.9M (Layer II) multiply-adds per frame-channel against 128 T bytes of S
+// read and as many of pcm written; M (1.3-7.5 MB) stays in L2. The
+// reference's bar (2e-5) needs true fp32, which the tensor cores do not
+// offer (TF32 keeps ~10 mantissa bits), so this is a SIMT GEMM: a 64 x 96
+// output tile per 256-thread block (n is a multiple of 96 for all three
+// T), 32-deep K slabs of S and M staged in padded (conflict-free) shared
+// memory, a 4 x 6 register tile per thread and K pass. Layer I/II's S is
+// the bitstream stage's sb [F, C, 32, T] as it is (K index k*T + t), with
+// M's columns permuted to match on the host, so both operands load as
+// contiguous float4 rows and no transpose pass runs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -155,13 +175,12 @@ mp3_hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ bt,
   }
 }
 
-// ----- M2 -------------------------------------------------------------
+// ----- M2 and L1 --------------------------------------------------------
 
 constexpr int kSynthThreads = 256;
-constexpr int kBM = 64;        // output rows (granule-channels) per block
+constexpr int kBM = 64;        // output rows (frame-channels) per block
 constexpr int kBN = 96;        // output columns per block; 480 = 5 * 96
 constexpr int kBK = 32;        // K slab
-constexpr int kK = 576;        // product depth
 constexpr int kOla = 480;      // overlapped columns
 constexpr int kAPad = kBM + 1; // shared strides: odd, so the transposing
 constexpr int kBPad = kBN + 1; // stores below hit 32 distinct banks
@@ -169,6 +188,7 @@ constexpr int kBPad = kBN + 1; // stores below hit 32 distinct banks
 // One K pass: acc[i][j] += sum_k A[row i][k] * M[col j][k] over the tile.
 // a_rows[s] is the source row of S for the s-th float4 this thread loads
 // (-1: zeros); m_base points at M's first column of the tile.
+template <int kK>
 __device__ __forceinline__ void synth_pass(
     float (&acc)[4][6], const float* __restrict__ S,
     const int64_t (&a_rows)[2], const float* __restrict__ m_base,
@@ -216,28 +236,38 @@ __device__ __forceinline__ void synth_pass(
   }
 }
 
-// Grid: x over ceil((G+1)*C / 64) row tiles (row r >= G*C is the virtual
-// granule G that yields tail_out), y over the six 96-column tiles.
+// Grid: x over ceil((F + KS) * C / 64) row tiles (rows r >= F*C are the
+// virtual frames that yield tail_out), y over the n / 96 column tiles.
+template <int T>
 __global__ void __launch_bounds__(kSynthThreads)
-mp3_synth_kernel(const float* __restrict__ S, const float* __restrict__ M,
-                 const float* __restrict__ tail0,
-                 const uint8_t* __restrict__ boundary,
-                 float* __restrict__ pcm, float* __restrict__ tail_out,
-                 int G, int C) {
+synth_kernel(const float* __restrict__ S, const float* __restrict__ M,
+             const float* __restrict__ tail0,
+             const uint8_t* __restrict__ boundary, float* __restrict__ pcm,
+             float* __restrict__ tail_out, int F, int C) {
+  constexpr int kN = 32 * T;                      // PCM per frame; depth
+  constexpr int kTotal = kN + kOla;               // response length
+  constexpr int kSteps = (kOla + kN - 1) / kN;    // frames the tail reaches
+  // Column tiles never straddle the end of a K pass's columns.
+  static_assert(kN % kBN == 0 && kOla % kBN == 0, "T % 3 == 0");
   __shared__ float As[kBK * kAPad];
   __shared__ float Bs[kBK * kBPad];
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int64_t R = static_cast<int64_t>(G) * C;
+  const int64_t R = static_cast<int64_t>(F) * C;            // real rows
+  const int64_t R_all = static_cast<int64_t>(F + kSteps) * C;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
   const int col0 = blockIdx.y * kBN;
-  const bool ola = col0 < kOla;
+  // Pass k (k >= 1) covers this tile when kN * k + col0 < kTotal; pass 1
+  // always does when any does.
+  const bool ola = kN + col0 < kTotal;
 
-  float own[4][6], prv[4][6];
+  float acc[kSteps + 1][4][6];  // [0]: own product, [k]: term_k
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k <= kSteps; ++k)
 #pragma unroll
-    for (int j = 0; j < 6; ++j) own[i][j] = prv[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) acc[k][i][j] = 0.f;
 
   int64_t a_rows[2];
 #pragma unroll
@@ -245,45 +275,70 @@ mp3_synth_kernel(const float* __restrict__ S, const float* __restrict__ M,
     const int64_t r = row0 + ((tid + s * kSynthThreads) >> 3);
     a_rows[s] = r < R ? r : -1;
   }
-  synth_pass(own, S, a_rows, M + static_cast<int64_t>(col0) * kK, As, Bs);
-  if (ola) {
+  synth_pass<kN>(acc[0], S, a_rows, M + static_cast<int64_t>(col0) * kN, As,
+                 Bs);
+#pragma unroll
+  for (int k = 1; k <= kSteps; ++k) {
+    if (kN * k + col0 >= kTotal) break;
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int64_t r = row0 + ((tid + s * kSynthThreads) >> 3);
       const int64_t g = r / C;
-      const bool linked = r < R + C && g >= 1 &&
-                          (g == G || boundary == nullptr || !boundary[g]);
-      a_rows[s] = linked ? r - C : -1;
+      const bool linked = r < R_all && g - k >= 0 && g - k < F &&
+                          (g >= F || boundary == nullptr || !boundary[g]);
+      a_rows[s] = linked ? r - static_cast<int64_t>(k) * C : -1;
     }
-    synth_pass(prv, S, a_rows, M + static_cast<int64_t>(kK + col0) * kK, As,
-               Bs);
+    synth_pass<kN>(acc[k], S, a_rows,
+                   M + static_cast<int64_t>(kN * k + col0) * kN, As, Bs);
   }
 
+  const bool carry = tail0 != nullptr && (boundary == nullptr || !boundary[0]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t r = row0 + ty * 4 + i;
-    if (r >= R + C) break;
+    if (r >= R_all) break;
     const int64_t g = r / C;
     const int c = static_cast<int>(r - g * C);
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
       const int n = col0 + tx + 16 * j;
-      if (r >= R) {  // virtual granule G: the outgoing tail
-        if (ola) tail_out[c * kOla + n] = prv[i][j];
-        continue;
-      }
-      float v = own[i][j];
-      if (ola) {
-        if (g > 0) {
-          v += prv[i][j];  // zero where boundary[g]
-        } else if (tail0 != nullptr &&
-                   (boundary == nullptr || !boundary[0])) {
-          v += tail0[c * kOla + n];
+      float prev = 0.f;
+#pragma unroll
+      for (int k = 1; k <= kSteps; ++k) {
+        if (kN * k + col0 >= kTotal) break;
+        float term = acc[k][i][j];  // zero where S[r - kC] does not exist
+        if (g - k == -1) {
+          const int64_t t = g * kN + n;
+          term = carry && t < kOla ? tail0[c * kOla + t] : 0.f;
         }
+        prev = k == 1 ? term : prev + term;
       }
-      pcm[r * kK + n] = v;
+      if (r >= R) {  // a virtual frame: the outgoing tail
+        const int64_t t = (g - F) * kN + n;
+        if (t < kOla) tail_out[c * kOla + t] = prev;
+      } else {
+        pcm[r * kN + n] = ola ? acc[0][i][j] + prev : acc[0][i][j];
+      }
     }
   }
+}
+
+template <int T>
+int launch_synth(const void* S, const void* M, const void* tail0,
+                 const void* boundary, void* pcm, void* tail_out, int F,
+                 int C, void* stream) {
+  if (F <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  constexpr int kSteps = (kOla + 32 * T - 1) / (32 * T);
+  const int64_t rows = (static_cast<int64_t>(F) + kSteps) * C;
+  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
+                  32 * T / kBN);
+  synth_kernel<T><<<grid, kSynthThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S), static_cast<const float*>(M),
+      static_cast<const float*>(tail0),
+      static_cast<const uint8_t*>(boundary), static_cast<float*>(pcm),
+      static_cast<float*>(tail_out), F, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -313,14 +368,20 @@ extern "C" int mp3_synth_launch(const void* S, const void* M,
                                 const void* tail0, const void* boundary,
                                 void* pcm, void* tail_out, int G, int C,
                                 void* stream) {
-  const int64_t rows = (static_cast<int64_t>(G) + 1) * C;
-  if (G <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM), kK / kBN);
-  mp3_synth_kernel<<<grid, kSynthThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(S), static_cast<const float*>(M),
-      static_cast<const float*>(tail0),
-      static_cast<const uint8_t*>(boundary), static_cast<float*>(pcm),
-      static_cast<float*>(tail_out), G, C);
-  return static_cast<int>(cudaGetLastError());
+  return launch_synth<18>(S, M, tail0, boundary, pcm, tail_out, G, C, stream);
+}
+
+// sb [F, C, 32, T] (T = 12 or 36) -> pcm [F, C, 32T], tail_out [C, 480];
+// M [(T + 15) * 32, 32T] with columns in sb's order; tail0 may be null.
+extern "C" int mpa_l12_synth_launch(const void* sb, const void* M,
+                                    const void* tail0, void* pcm,
+                                    void* tail_out, int F, int C, int T,
+                                    void* stream) {
+  if (T == 12)
+    return launch_synth<12>(sb, M, tail0, nullptr, pcm, tail_out, F, C,
+                            stream);
+  if (T == 36)
+    return launch_synth<36>(sb, M, tail0, nullptr, pcm, tail_out, F, C,
+                            stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,62 @@
+// Vorbis dense stage for Hopper (sm_90a): kernel V1 vorbis_imdct. It
+// replaces symphonia_tpu/ops/vorbis_dense.py:21 _imdct_jax (K10):
+//   Y[L, n] = X[L, n/2] . M^T,  M = imdct_matrix(n), [n, n/2] unscaled fp32,
+// one launch per block size n (a power of two, 64..8192), over the
+// packet-channel lanes of every stream with that block size.
+// The product is simt_gemm.cuh's tile, shared with A1 aac_imdct: 64 x 128
+// outputs per 256-thread block, 32-deep K slabs, true fp32 in K order (the
+// reference's parity bars leave no room for TF32). n = 64 has 64 output
+// columns, below the 128-wide tile: the tile's column guard reads zeros
+// past n and stores nothing there.
+// What bounds V1: arithmetic while M stays in L2. At n = 2048 a lane needs
+// 2.1M multiply-adds against 4 KB of spectrum and 8 KB of output, and M
+// (8 MB) stays in the 50 MB L2. At n = 8192, M is 128 MB, beyond L2: the
+// grid walks row tiles fastest, so the row tiles of one column tile (a 2 MB
+// slice of M) run together and share its slice through L2; only when a
+// wave holds fewer row tiles than the batch does a slice come from HBM
+// again. Even then a block does 33.5M multiply-adds per 3 MB read, about
+// the card's fp32 ridge (~20 flop/byte), so the kernel stays near its
+// arithmetic bound.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "simt_gemm.cuh"
+
+namespace {
+
+using simt_gemm::kBK;
+using simt_gemm::kBM;
+using simt_gemm::kBN;
+
+__global__ void __launch_bounds__(simt_gemm::kThreads)
+vorbis_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
+                    float* __restrict__ Y, int L, int n) {
+  __shared__ float As[kBK * simt_gemm::kAPad];
+  __shared__ float Bs[kBK * simt_gemm::kBPad];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
+  const int col0 = blockIdx.y * kBN;
+  int64_t rows[2];
+  simt_gemm::a_rows(row0, L, rows);
+  float acc[4][8] = {};
+  simt_gemm::tile_product(simt_gemm::RowsA{X, n / 2}, rows, M, n / 2, n,
+                          col0, As, Bs, acc);
+  simt_gemm::store_tile(Y, acc, row0, L, col0, n);
+}
+
+}  // namespace
+
+// Y [L, n] = X [L, n/2] . M^T, M [n, n/2]; n a power of two in 64..8192.
+extern "C" int vorbis_imdct_launch(const void* X, const void* M, void* Y,
+                                   int L, int n, void* stream) {
+  if (L <= 0) return static_cast<int>(cudaGetLastError());
+  if (n < 64 || n > 8192 || (n & (n - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((L + kBM - 1) / kBM),
+                  static_cast<unsigned>((n + kBN - 1) / kBN));
+  vorbis_imdct_kernel<<<grid, simt_gemm::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(X), static_cast<const float*>(M),
+      static_cast<float*>(Y), L, n);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ``ctypes``. The library lands in ``symphonia_tpu_torch/_build/`` under
+Every ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. The library lands in ``symphonia_tpu_torch/_build/`` under
 a name keyed by a hash of the sources, so an edited source rebuilds and a
 stale library is never loaded. Nothing here runs at import time: the first
 kernel launch builds.
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -31,11 +33,11 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
-           "aac_imdct", "aac_dequant", "aac_ola")
+           "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
+           "mpa_l12_synth")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -65,6 +67,10 @@ _SIGNATURES = {
     # pcm, seqs, shapes, prev_shapes, first, head, delay, s_first, s_left,
     # s_right, out, L, stream
     "aac_ola_launch": [_P] * 11 + [_I, _P],
+    # X, M, Y, L, n, stream
+    "vorbis_imdct_launch": [_P] * 3 + [_I, _I, _P],
+    # sb, M, tail0, pcm, tail_out, F, C, T, stream
+    "mpa_l12_synth_launch": [_P] * 5 + [_I, _I, _I, _P],
 }
 
 
@@ -102,6 +108,12 @@ def _source_hash(srcs) -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc(nvcc: str, args) -> subprocess.CompletedProcess:
+    # subprocess.run kills nvcc if it outlives the timeout.
+    return subprocess.run([nvcc] + NVCC_FLAGS + args, capture_output=True,
+                          text=True, timeout=600)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into _build/ (no-op when the hashed library
     exists). Returns the library path; raises on any failure."""
@@ -113,14 +125,25 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([nvcc] + NVCC_FLAGS + ["-o", str(tmp)]
-           + [str(s) for s in srcs if s.suffix == ".cu"])
+    cus = [s for s in srcs if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    try:
+        # One nvcc per source, all started together, then one link.
+        with ThreadPoolExecutor(len(cus)) as pool:
+            procs = list(pool.map(
+                lambda s, o: _nvcc(nvcc, ["-c", str(s), "-o", str(o)]),
+                cus, objs))
+        if not any(p.returncode for p in procs):
+            procs.append(_nvcc(nvcc, ["-shared", "-o", str(tmp)]
+                               + [str(o) for o in objs]))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_log = "".join(p.stdout + p.stderr for p in procs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
     os.replace(tmp, so)
     return so
 

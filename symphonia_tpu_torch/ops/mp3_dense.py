@@ -1,4 +1,5 @@
-"""MP3 Layer III dense stage: spectra [G, C, 576] -> PCM [G, C, 576].
+"""MPEG audio dense stages: Layer III spectra [G, C, 576] -> PCM [G, C,
+576], and Layer I/II subband samples [F, C, 32, T] -> PCM [F, C, 32T].
 
 PyTorch port of ``symphonia_tpu/ops/mp3_dense.py:346`` (``mp3_dense_batch_jax``).
 Every granule decodes in parallel; the two linear cross-granule couplings
@@ -16,8 +17,16 @@ Two kernels:
   combined polyphase matrix in true fp32, with the 480-sample synthesis
   overlap-add fused into it.
 
+Layer I/II (``:273``, ``l12_dense_batch_jax``) has no hybrid stage: its
+bitstream stage's subband samples go straight into the polyphase product,
+``[F*C, 32T] x [32T, 32T + 480]`` for T = 12 (Layer I) or 36 (Layer II),
+and the 480-sample tail overlaps the next ceil(480 / 32T) frames (two for
+Layer I), with a carried ``synth_tail [C, 480]`` between calls. One kernel,
+``mpa_l12_synth`` (L1), M2's body for those T.
+
 The operator tables are the reference package's numpy builders, imported
-(they are numpy only) and held as buffers of :class:`Mp3Dense`.
+(they are numpy only) and held as buffers of :class:`Mp3Dense` and
+:class:`L12Dense`.
 """
 
 from __future__ import annotations
@@ -46,6 +55,23 @@ def reference_tables() -> Dict[str, np.ndarray]:
         "finv": freq_inversion_mask(),             # [32, 18]
         "polyphase": _polyphase_combined_matrix(),  # [1056, 576]
     }
+
+
+L12_T = (12, 36)  # subband samples per frame: Layer I, Layer II
+
+
+def l12_tables() -> Dict[int, np.ndarray]:
+    """Layer I/II polyphase operators ``[(T+15)*32, 32T]`` per T, from the
+    reference builder, with the K axis permuted into the order of the
+    bitstream stage's ``sb [.., 32, T]`` (index k*T + t for subband k,
+    sample t; the reference's is t*32 + k), so ``sb`` enters the product
+    as it is."""
+    out = {}
+    for T in L12_T:
+        m = _polyphase_combined_matrix(T)
+        out[T] = np.ascontiguousarray(
+            m.reshape(-1, T, 32).transpose(0, 2, 1).reshape(m.shape))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +124,9 @@ def mp3_hybrid_plain(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
 def mp3_synth_plain(S, polyphase, synth_tail0, boundary):
     """Twin of M2: S [G, C, 576] -> (pcm [G, C, 576], tail [C, 480])."""
     G, C, _ = S.shape
-    # S @ M^T with M^T made contiguous: the CPU product's sum order then
-    # does not depend on G, so chained calls equal one call.
+    # The CPU product's sum order depends on G (its BLAS splits K across
+    # threads for few rows), so chained calls equal one call within fp32
+    # rounding here, and bit for bit only in M2.
     resp = torch.matmul(S, polyphase.T.contiguous())  # [G, C, 1056]
     if synth_tail0 is None:
         synth_tail0 = torch.zeros((C, 480), dtype=S.dtype, device=S.device)
@@ -108,6 +135,56 @@ def mp3_synth_plain(S, polyphase, synth_tail0, boundary):
         prev = torch.where(boundary[:, None, None], 0.0, prev)
     pcm = torch.cat([resp[:, :, :480] + prev, resp[:, :, 480:576]], dim=2)
     return pcm, resp[-1, :, 576:].clone()
+
+
+def l12_synth_plain(sb, polyphase, synth_tail0):
+    """Twin of L1: ``sb [F, C, 32, T] -> (pcm [F, C, 32T], tail [C, 480])``,
+    the reference's ``l12_dense_batch_jax`` line for line, ``polyphase``
+    from :func:`l12_tables` (K in sb's order)."""
+    F, C, _, T = sb.shape
+    n = 32 * T
+    total = n + 480
+    K = -(-480 // n)  # frames the tail reaches forward
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=sb.dtype, device=sb.device)
+
+    resp = torch.matmul(sb.reshape(F, C, n), polyphase.T.contiguous())
+    if synth_tail0 is None:
+        synth_tail0 = zeros(C, 480)
+    pcm = resp[:, :, :n]
+    # (a) tails of earlier frames in the batch: k-step shifts along F.
+    for k in range(1, min(K, F) + 1):
+        lo, hi = k * n, min((k + 1) * n, total)
+        if lo >= total or F <= k:
+            break
+        seg = resp[: F - k, :, lo:hi]
+        if hi - lo < n:
+            seg = torch.cat([seg, zeros(F - k, C, n - (hi - lo))], dim=2)
+        pcm = pcm + torch.cat([zeros(k, C, n), seg], dim=0)
+    # (b) the carried tail, sliced across the first min(K, F) frames.
+    carried = (torch.cat([synth_tail0, zeros(C, K * n - 480)], dim=1)
+               if K * n > 480 else synth_tail0)
+    nf = min(K, F)
+    lead = carried[:, : nf * n].reshape(C, nf, n).transpose(0, 1)
+    if nf < F:
+        lead = torch.cat([lead, zeros(F - nf, C, n)], dim=0)
+    pcm = pcm + lead
+    # Outgoing tail: pending response of the last K frames (+ any carried
+    # remainder when the batch is shorter than the tail's reach).
+    synth_tail = zeros(C, 480)
+    for j in range(min(K, F)):
+        lo = n * (j + 1)
+        width = min(480, total - lo)
+        part = resp[F - 1 - j, :, lo : lo + width]
+        if width < 480:
+            part = torch.cat([part, zeros(C, 480 - width)], dim=1)
+        synth_tail = synth_tail + part
+    if F * n < 480:
+        left = synth_tail0[:, F * n :]
+        synth_tail = synth_tail + torch.cat(
+            [left, zeros(C, 480 - left.shape[1])], dim=1)
+    return pcm, synth_tail
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +273,39 @@ def mp3_synth(S, polyphase, synth_tail0, boundary):
     return pcm, tail
 
 
+def mpa_l12_synth(sb, polyphase, synth_tail0):
+    """L1 wrapper: ``sb [F, C, 32, T] -> (pcm [F, C, 32T], tail [C,
+    480])`` for T = 12 or 36, the polyphase product with ``polyphase``
+    (:func:`l12_tables`) in true fp32 and the K-step overlap-add in one
+    kernel; ``synth_tail0`` None means stream start."""
+    F, C, _, T = sb.shape
+    if F == 0:
+        raise ValueError("empty frame batch")
+    if _build.device_type(sb) == "cpu":
+        return l12_synth_plain(sb, polyphase, synth_tail0)
+    sb = sb.contiguous()
+    synth_tail0 = (None if synth_tail0 is None
+                   else synth_tail0.to(torch.float32).contiguous())
+    opt = [] if synth_tail0 is None else [synth_tail0]
+    dev = _build.require_cuda(sb, polyphase, *opt)
+    if (sb.dtype != torch.float32 or sb.shape[2] != 32 or T not in L12_T
+            or polyphase.dtype != torch.float32
+            or polyphase.shape != ((T + 15) * 32, 32 * T)
+            or (synth_tail0 is not None and synth_tail0.shape != (C, 480))):
+        raise ValueError("f32 sb [F, C, 32, T] with T 12 or 36, polyphase "
+                         "[(T+15)*32, 32T], tail [C, 480]")
+    if sb.data_ptr() % 16 or polyphase.data_ptr() % 16:
+        raise ValueError("sb and polyphase must be 16-byte aligned")
+    pcm = torch.empty((F, C, 32 * T), dtype=torch.float32, device=dev)
+    tail = torch.empty((C, 480), dtype=torch.float32, device=dev)
+    err = _build.lib().mpa_l12_synth_launch(
+        sb.data_ptr(), polyphase.data_ptr(), _opt_ptr(synth_tail0),
+        pcm.data_ptr(), tail.data_ptr(), F, C, T, _build.stream_ptr(dev))
+    _build.LAUNCHES["mpa_l12_synth"] += 1
+    _build.check("mpa_l12_synth", err)
+    return pcm, tail
+
+
 # ---------------------------------------------------------------------------
 # The module
 # ---------------------------------------------------------------------------
@@ -245,3 +355,40 @@ class Mp3Dense(nn.Module):
                                     self.hybrid, self.cs, self.ca, self.finv)
         pcm, synth_tail = mp3_synth(S, self.polyphase, synth_tail0, boundary)
         return pcm, hybrid_tail, synth_tail
+
+
+class L12Dense(nn.Module):
+    """The Layer I/II dense stage with its polyphase operators as buffers
+    ``polyphase_12`` [864, 384] and ``polyphase_36`` [1632, 1152]
+    (:func:`l12_tables`).
+
+    ``forward(sb, synth_tail0=None) -> (pcm, synth_tail)`` with the
+    reference's semantics; ``None`` means stream start."""
+
+    def __init__(self, polyphase_12, polyphase_36):
+        super().__init__()
+        self.register_buffer("polyphase_12", polyphase_12)
+        self.register_buffer("polyphase_36", polyphase_36)
+
+    @classmethod
+    def from_numpy(cls, tables: Dict[int, np.ndarray], device) -> "L12Dense":
+        return cls(*(torch.from_numpy(np.array(tables[T], np.float32))
+                     for T in L12_T)).to(torch.device(device))
+
+    @staticmethod
+    def state_from_numpy(synth_tail: np.ndarray, device) -> torch.Tensor:
+        """Carried ``synth_tail [C, 480]`` from numpy, e.g. handed over
+        from the reference mid-stream."""
+        return torch.from_numpy(np.array(synth_tail, np.float32)).to(
+            torch.device(device))
+
+    @staticmethod
+    def state_to_numpy(synth_tail: torch.Tensor) -> np.ndarray:
+        return synth_tail.cpu().numpy()
+
+    def forward(self, sb, synth_tail0=None):
+        T = sb.shape[3]
+        if T not in L12_T:
+            raise ValueError(f"T = {T}: Layer I has 12, Layer II 36")
+        return mpa_l12_synth(sb, getattr(self, f"polyphase_{T}"),
+                             synth_tail0)

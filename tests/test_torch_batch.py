@@ -1,7 +1,9 @@
-"""The port's batch decode slices (FLAC, MP3 Layer III, AAC-LC) on CPU
-against the JAX reference's ``symphonia_tpu.batch``: FLAC exact with equal
-MD5 verdicts, MP3 within the reference's dense-stage bar (atol 2e-5), AAC
-within the reference's batch-decoder bar (atol 1e-5, test_aac.py:213)."""
+"""The port's batch decode slices (FLAC, MPEG audio Layers I-III, AAC-LC,
+Ogg Vorbis) on CPU against the JAX reference's ``symphonia_tpu.batch``:
+FLAC exact with equal MD5 verdicts, MPEG audio within the reference's
+dense-stage bar (atol 2e-5), AAC within the reference's batch-decoder bar
+(atol 1e-5, test_aac.py:213), Vorbis within 1e-5 on house_lo.ogg
+(test_vorbis_ogg.py:207) and 1e-6 of the peak on builder streams."""
 
 import functools
 import importlib.util
@@ -276,6 +278,148 @@ class TestAacSlice:
         np.testing.assert_allclose(got.samples, want, atol=1e-5, rtol=0)
 
 
+HOUSE_OGG = HOUSE_MP3.with_suffix(".ogg")
+
+
+@functools.lru_cache(maxsize=None)
+def _vorbis():
+    """(name, bytes): house_lo.ogg (mono, one block size) and short stereo
+    builder streams, tamed as chip_smoke.py builds them, at 44.1 kHz with
+    blocks of 256/2048 and at 48 kHz with 512/4096."""
+    from chip_smoke import build_vorbis
+
+    return (("house", HOUSE_OGG.read_bytes()),
+            ("b44k_a", build_vorbis(44100, 8, 11, 1.0, 31)),
+            ("b44k_b", build_vorbis(44100, 8, 11, 1.5, 32)),
+            ("b48k", build_vorbis(48000, 9, 12, 1.0, 33)))
+
+
+def _close_vorbis(got, want, name):
+    assert got.samples.shape == want.samples.shape
+    assert got.sample_rate == want.sample_rate
+    assert got.samples.dtype == np.float32
+    atol = (1e-5 if name == "house"
+            else 1e-6 * max(1.0, float(np.abs(want.samples).max())))
+    np.testing.assert_allclose(got.samples, want.samples, atol=atol, rtol=0)
+
+
+class TestVorbisSlice:
+    @pytest.mark.parametrize("i", range(4))
+    def test_decode_bytes_matches_reference(self, i):
+        name, data = _vorbis()[i]
+        got = port.VorbisBatchDecoder(device="cpu").decode_bytes(data)
+        _close_vorbis(got, _ref_one(data), name)
+        assert np.abs(got.samples).max() > 0
+
+    def test_decode_many_merged_equals_per_file(self):
+        # Lanes of every stream share one IMDCT per block size (four sizes
+        # here); each stream's output is the bits of its own decode.
+        names, datas = zip(*_vorbis())
+        dec = port.VorbisBatchDecoder(device="cpu")
+        merged = dec.decode_many(list(datas) + [datas[1]])
+        for d, got in zip(list(datas) + [datas[1]], merged):
+            np.testing.assert_array_equal(got.samples,
+                                          dec.decode_bytes(d).samples)
+        for name, got, want in zip(names, merged, ref.decode_many(datas)):
+            _close_vorbis(got, want, name)
+
+    def test_lane_chunks_equal_one_chunk(self, monkeypatch):
+        from symphonia_tpu_torch.ops import vorbis_dense
+
+        data = _vorbis()[2][1]
+        want = port.VorbisBatchDecoder(device="cpu").decode_bytes(data)
+        monkeypatch.setattr(vorbis_dense, "LANE_CHUNK", 7)
+        got = port.VorbisBatchDecoder(device="cpu").decode_bytes(data)
+        np.testing.assert_array_equal(got.samples, want.samples)
+
+    def test_native_less_oracle_path(self, monkeypatch):
+        from symphonia_tpu import native
+
+        name, data = _vorbis()[1]
+        want = _ref_one(data)
+        monkeypatch.setattr(native, "vorbis_decode_spectra",
+                            lambda *a: None)
+        monkeypatch.setenv("SYMPHONIA_TPU_VORBIS_STREAM", "off")
+        before = port.host_routes
+        got = port.VorbisBatchDecoder(device="cpu").decode_bytes(data)
+        _close_vorbis(got, want, name)
+        assert port.host_routes == before
+
+    def test_not_ogg_raises_like_reference(self):
+        from symphonia_tpu.core.errors import Unsupported
+
+        with pytest.raises(Unsupported, match="OggS"):
+            port.VorbisBatchDecoder(device="cpu").decode_bytes(_mp3s()[0])
+        with pytest.raises(Unsupported, match="OggS"):
+            ref.VorbisBatchDecoder().decode_bytes(_mp3s()[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _l12s():
+    """(name, bytes): stereo Layer I, MPEG-1 and MPEG-2 LSF Layer II streams
+    as chip_smoke.py builds them, and a mono Layer II stream."""
+    from chip_smoke import build_mpa_l12
+    from test_layer12 import _rand_l2_frame
+
+    return (("l1", build_mpa_l12("l1", 7, 41)),
+            ("l2", build_mpa_l12("l2", 6, 42)),
+            ("l2_lsf", build_mpa_l12("l2_lsf", 5, 43)),
+            ("l2_mono", b"".join(_rand_l2_frame(s)[0] for s in range(4))))
+
+
+class TestLayer12Slice:
+    @pytest.mark.parametrize("i", range(4))
+    def test_decode_bytes_runs_l1_and_matches_reference(self, i, monkeypatch):
+        from symphonia_tpu_torch.ops import mp3_dense
+
+        name, data = _l12s()[i]
+        widths = []
+        real = mp3_dense.mpa_l12_synth
+        monkeypatch.setattr(mp3_dense, "mpa_l12_synth", lambda *a: (
+            widths.append(a[0].shape[3]), real(*a))[1])
+        before = port.host_routes
+        got = port.decode_bytes(data, device="cpu")
+        assert widths and set(widths) == {12 if name == "l1" else 36}
+        assert port.host_routes == before
+        _close_mp3(got, _ref_one(data))
+        assert got.samples.dtype == np.float32
+        assert np.abs(got.samples).max() > 0
+
+    def test_frame_chunks_chain(self):
+        # Chunks of two Layer I frames: the carried tail reaches two frames.
+        data = _l12s()[0][1]
+        a = port.Mp3BatchDecoder(device="cpu", granule_chunk=2)
+        b = port.Mp3BatchDecoder(device="cpu")
+        _close_mp3(a.decode_bytes(data), b.decode_bytes(data), atol=1e-6)
+
+    def test_ungapless_matches_reference(self):
+        data = _l12s()[1][1]
+        got = port.Mp3BatchDecoder(device="cpu", gapless=False).decode_bytes(
+            data)
+        _close_mp3(got, ref.Mp3BatchDecoder(gapless=False).decode_bytes(data))
+
+    def test_native_less_stream_takes_counted_host_route(self, monkeypatch):
+        from symphonia_tpu import native
+
+        data = _l12s()[1][1]
+        monkeypatch.setattr(native, "available", lambda: False)
+        want = ref.Mp3BatchDecoder().decode_bytes(data)  # its fallback
+        before = port.host_routes
+        got = port.decode_bytes(data, device="cpu")
+        assert port.host_routes == before + 1
+        _close_mp3(got, want, atol=0)
+
+    def test_channel_change_takes_counted_host_route(self):
+        from test_layer12 import _rand_l2_frame
+
+        data = b"".join(_rand_l2_frame(s, n_ch=1 + s % 2)[0]
+                        for s in range(4))
+        before = port.host_routes
+        got = port.Mp3BatchDecoder(device="cpu").decode_bytes(data)
+        assert port.host_routes == before + 1
+        _close_mp3(got, ref.Mp3BatchDecoder().decode_bytes(data), atol=0)
+
+
 class TestFacade:
     def test_mixed_batch_keeps_input_order(self):
         flacs = _flacs()
@@ -308,6 +452,24 @@ class TestFacade:
         assert outs[1].md5_ok is True
         _close_aac(outs[2], ref.AacBatchDecoder().decode_bytes(datas[2]))
 
+    def test_mixed_batch_of_every_slice_keeps_input_order(self):
+        kinds = ["vorbis", "flac", "l1", "mp3", "aac", "l2", "vorbis"]
+        datas = [_vorbis()[1][1], _flacs()[0][0], _l12s()[0][1], _mp3s()[0],
+                 _aacs()[2][1], _l12s()[1][1], _vorbis()[3][1]]
+        outs = port.decode_many(datas, device="cpu", verify=True)
+        for kind, d, got in zip(kinds, datas, outs):
+            one = port.decode_bytes(d, device="cpu", verify=True)
+            if kind == "flac":
+                _same_flac(got, one)
+                assert got.md5_ok is True
+            elif kind == "vorbis":
+                np.testing.assert_array_equal(got.samples, one.samples)
+                _close_vorbis(got, _ref_one(d), kind)
+            else:
+                _close_mp3(got, one, atol=1e-6)
+                if kind != "aac":
+                    _close_mp3(got, _ref_one(d))
+
     def test_decode_file(self, tmp_path):
         data, src = _flacs()[3]
         p = tmp_path / "a.flac"
@@ -321,3 +483,17 @@ class TestFacade:
                    _ref_one(_mp3s()[2]))
         dec = port.FlacBatchDecoder(device="cpu")
         _same_flac(dec.decode_files([str(p)])[0], dec.decode_file(str(p)))
+
+    def test_decode_file_vorbis_and_layer2(self, tmp_path):
+        name, data = _vorbis()[3]
+        p = tmp_path / "a.ogg"
+        p.write_bytes(data)
+        got = port.decode_file(str(p), device="cpu")
+        _close_vorbis(got, _ref_one(data), name)
+        np.testing.assert_array_equal(
+            port.VorbisBatchDecoder(device="cpu").decode_file(str(p)).samples,
+            got.samples)
+        q = tmp_path / "b.mp2"
+        q.write_bytes(_l12s()[2][1])
+        _close_mp3(port.decode_file(str(q), device="cpu"),
+                   _ref_one(_l12s()[2][1]))

@@ -27,6 +27,11 @@ def test_port_never_imports_jax():
         from aac_builder import build_adts, build_raw_block
         from flac_builder import build_flac_file
         from mp3_builder import build_mpeg1_l3_stream
+        from test_layer12 import _rand_l2_frame
+        import importlib.util, pathlib
+        pg = importlib.util.find_spec("pygame").submodule_search_locations[0]
+        ogg = (pathlib.Path(pg) / "examples/data/house_lo.ogg").read_bytes()
+        mp2 = b"".join(_rand_l2_frame(s, n_ch=2)[0] for s in range(3))
         steps = np.random.default_rng(1).integers(-60, 61, size=(2, 1024))
         ch = list(np.clip(np.cumsum(steps, axis=1), -32767, 32767))
         flac = build_flac_file(ch, block_size=256, stereo_mode="mid_side",
@@ -36,12 +41,17 @@ def test_port_never_imports_jax():
         q[:8] = [100, -500, 17, -16, 2000, -8000, 15, 1]
         aac = build_adts([build_raw_block([q, -q], [s, s], 12, 140, 44100)
                           for s in (0, 1, 2, 3)], 44100, 2)
-        out = batch.decode_many([flac, mp3, aac], device="cpu", verify=True)
+        out = batch.decode_many([flac, mp3, aac, ogg, mp2], device="cpu",
+                                verify=True)
         assert out[0].md5_ok is True and (out[0].samples == ch).all()
         assert out[1].samples.shape[0] == 2
         assert np.isfinite(out[1].samples).all()
         assert out[2].samples.shape == (2, 4096)
         assert np.isfinite(out[2].samples).all() and out[2].samples.any()
+        assert out[3].samples.shape[0] == 1 and out[3].samples.any()
+        assert out[4].samples.shape == (2, 3 * 1152)
+        assert np.isfinite(out[4].samples).all() and out[4].samples.any()
+        assert batch.host_routes == 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
         assert not bad, bad
         print("ok")
@@ -71,6 +81,7 @@ def test_port_sources_import_no_jax():
     lambda: port.FlacBatchDecoder(device="cuda"),
     lambda: port.Mp3BatchDecoder(device="cuda"),
     lambda: port.AacBatchDecoder(device="cuda"),
+    lambda: port.VorbisBatchDecoder(device="cuda"),
     lambda: port.decode_bytes(b"", device="cuda"),
 ])
 def test_cuda_without_cuda_raises(make):
@@ -103,6 +114,8 @@ def test_device_is_required():
     with pytest.raises(TypeError):
         port.AacBatchDecoder()
     with pytest.raises(TypeError):
+        port.VorbisBatchDecoder()
+    with pytest.raises(TypeError):
         port.decode_many([])
     with pytest.raises(ValueError):
         port.FlacBatchDecoder(device="meta")
@@ -123,10 +136,45 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "_build").exists()
 
 
+_FAKE_NVCC = """#!/bin/sh
+prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+echo "$@" >> "$(dirname "$0")/calls.log"
+[ -n "{fail}" ] && case "$*" in *{fail}*) echo "error in {fail}"; exit 1;; esac
+touch "$out"
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "vorbis_dense.cu"])
+def test_build_one_nvcc_per_source_then_link(monkeypatch, tmp_path, fail):
+    # A stand-in nvcc that writes its -o file (or fails on one source):
+    # every .cu compiles on its own, one link follows only if all
+    # succeeded, and no object file is left behind either way.
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(_FAKE_NVCC.replace("{fail}", fail))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    cus = [s for s in _build._sources() if s.suffix == ".cu"]
+    if fail:
+        with pytest.raises(RuntimeError, match=f"error in {fail}"):
+            _build.build()
+    else:
+        so = _build.build()
+        assert so.exists() and so.parent == tmp_path / "_build"
+    calls = (tmp_path / "calls.log").read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert sorted(c.split(" -c ")[1].split()[0] for c in compiles) == sorted(
+        str(s) for s in cus)
+    assert sum("-shared" in c for c in calls) == (0 if fail else 1)
+    assert not list((tmp_path / "_build").glob("*.o"))
+
+
 def test_build_hash_follows_sources():
     srcs = _build._sources()
     assert {s.name for s in srcs} >= {"flac_dense.cu", "mp3_dense.cu",
-                                      "aac_dense.cu"}
+                                      "aac_dense.cu", "vorbis_dense.cu",
+                                      "simt_gemm.cuh"}
     assert _build._source_hash(srcs) == _build._source_hash(srcs)
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
 
@@ -166,19 +214,33 @@ def _layer2():
     return b"".join(_rand_l2_frame(s)[0] for s in range(3))
 
 
-@pytest.mark.parametrize("make,item", [
-    (_wav, "item 4"), (_adpcm, "item 4"), (_vorbis, "item 2"),
-    (_layer2, "item 3"),
-])
+def _flac():
+    from flac_builder import build_flac_file, random_walk
+
+    return build_flac_file(random_walk(512, 16, seed=4), block_size=256,
+                           kind="fixed", order=1)
+
+
+@pytest.mark.parametrize("make,item", [(_wav, "item 4"), (_adpcm, "item 4")])
 def test_codec_outside_slice_raises(make, item):
     data = make()
     with pytest.raises(NotImplementedError, match=item):
         port.decode_bytes(data, device="cpu")
-    from flac_builder import build_flac_file, random_walk
-
-    flac = build_flac_file(random_walk(512, 16, seed=4), block_size=256,
-                           kind="fixed", order=1)
     before = port.host_routes
     with pytest.raises(NotImplementedError, match=item):
-        port.decode_many([flac, data], device="cpu")
+        port.decode_many([_flac(), data], device="cpu")
     assert port.host_routes == before
+
+
+@pytest.mark.parametrize("make,channels", [(_vorbis, 1), (_layer2, 1)])
+def test_codec_in_slice_decodes(make, channels):
+    # The inputs that raised before their slices were ported.
+    data = make()
+    before = port.host_routes
+    one = port.decode_bytes(data, device="cpu")
+    both = port.decode_many([_flac(), data], device="cpu")
+    assert port.host_routes == before
+    assert one.samples.shape[0] == channels and one.samples.shape[1] > 0
+    assert np.isfinite(one.samples).all() and one.samples.any()
+    np.testing.assert_array_equal(both[1].samples, one.samples)
+    assert both[0].samples.shape == (1, 512)
