@@ -15,7 +15,10 @@ Phases (one line each; any failure raises and exits non-zero):
      ``window_ola_chain``; V1 at both ends of the Vorbis block sizes (64 and
      8192); L1 for Layer I and II, chained over calls (Layer I chunks of 1
      and 2 frames included) against one call, and against the reference's
-     numpy polyphase;
+     numpy polyphase; V2 vorbis_lap bit for bit at [16384, 2048] and
+     [4096, 64]; beside each kernel's time, the least time the card could
+     take for its work (``bound_ms``) and, where one PyTorch call computes
+     the same function, that call's time (``library_ms``);
   3. the slice: ``symphonia_tpu_torch.batch.decode_many`` on a mixed
      FLAC + MP3 Layer III + AAC-LC + Ogg Vorbis + MPEG Layer I/II batch
      built from a fixed seed with the repo's test encoders, on
@@ -23,9 +26,17 @@ Phases (one line each; any failure raises and exits non-zero):
      verified, MP3, AAC, Vorbis and Layer I/II against the port's CPU-twin
      path, no host route, every kernel of the path launched, V1 for each of
      the four Vorbis block sizes and L1 for Layer I and II (A2 is not on the
-     decode path, as in the reference, and is checked in phase 2 only).
-The line before the last is a JSON object of per-kernel results; the last
-is ``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
+     decode path, as in the reference, and is checked in phase 2 only);
+  4. the entry step: ``symphonia_tpu_torch.entry.decode_step`` (the
+     reference's combined four-codec step, K14) on the card at full width
+     (8192 FLAC frames of 4096 samples, 4096 stereo MP3 granules, 16384 AAC
+     frames, 16384 Vorbis blocks of 2048) against ``decode_step_plain`` on
+     the card: FLAC, AAC and Vorbis bit for bit, MP3 within 1e-5, F1, F2,
+     M1, M2, A1, A3, V1 and V2 launched; then a small step with EIGHT_SHORT
+     handoff lanes, which takes A2.
+Launch counts are read per path (each run from counts of 0): every kernel
+of a path must launch on it. The line before the last is a JSON object of
+per-kernel results; the last is ``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
 without a CUDA card or outside a checkout of the repository.
 """
 
@@ -100,16 +111,31 @@ KERNEL_INFO = {
                      "symphonia_tpu/ops/vorbis_dense.py:21"),
     "mpa_l12_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
                       "symphonia_tpu/ops/mp3_dense.py:273"),
+    # V2 replaces the Vorbis lap of the combined decode step (K14, lines
+    # 117-121 of the program at :62).
+    "vorbis_lap": ("cuda", "symphonia_tpu_torch/csrc/vorbis_dense.cu",
+                   "__graft_entry__.py:62"),
 }
-# Kernels the reference's decode path does not run (K9 serves only
-# dequant_select and its tests): checked in phase 2, not required in 3.
-OFF_PATH = ("aac_dequant",)
+# Kernels that decode_many does not run (K9 serves only dequant_select and
+# its tests; V2 is the entry step's lap): checked in phase 2, not required
+# in phase 3.
+OFF_PATH = ("aac_dequant", "vorbis_lap")
+# The entry step's kernels (phase 4); A2 runs only for short handoff lanes.
+STEP_PATH = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
+             "aac_imdct", "aac_ola", "vorbis_imdct", "vorbis_lap")
+# Phase 4's full width: FLAC frames, samples, MP3 granules, AAC frames,
+# Vorbis blocks and block size.
+STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# device memory and fp32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def _paths() -> None:
-    for p in (ROOT, os.path.join(ROOT, "tests")):
-        if p not in sys.path:
-            sys.path.insert(0, p)
+    if ROOT not in sys.path:
+        sys.path.insert(0, ROOT)
 
 
 def _lpc_coefs(order: int, seed: int):
@@ -125,7 +151,8 @@ def _lpc_coefs(order: int, seed: int):
 def build_flac(i: int):
     """One FLAC test stream -> (bytes, planar int64 source samples)."""
     _paths()
-    from flac_builder import build_flac_file, random_walk
+    from symphonia_tpu_torch.testing.flac_builder import (build_flac_file,
+                                                          random_walk)
 
     mode, kind, bps, kw = FLAC_SPECS[i]
     n = SR * FLAC_SECONDS
@@ -148,7 +175,7 @@ def build_flac(i: int):
 
 def build_mp3(i: int) -> bytes:
     _paths()
-    from mp3_builder import build_mpeg1_l3_stream
+    from symphonia_tpu_torch.testing.mp3_builder import build_mpeg1_l3_stream
 
     n_ch, seed = MP3_SPECS[i]
     return build_mpeg1_l3_stream(MP3_FRAMES, n_ch=n_ch, seed=SEED + seed)
@@ -156,7 +183,8 @@ def build_mp3(i: int) -> bytes:
 
 def build_aac(i: int) -> bytes:
     _paths()
-    from aac_builder import build_adts, build_raw_block, random_quant_spectrum
+    from symphonia_tpu_torch.testing.aac_builder import (
+        build_adts, build_raw_block, random_quant_spectrum)
 
     rate, content, seed = AAC_SPECS[i]
     rng = np.random.default_rng(SEED + 200 + seed)
@@ -190,11 +218,10 @@ def build_vorbis(rate: int, bs0_exp: int, bs1_exp: int, seconds: float,
     overflow to inf. A quarter of the packets are short blocks, at random.
     """
     _paths()
-    import vorbis_builder as vb
-    from test_vorbis_ogg import _ogg_page
-
-    from symphonia_tpu.codecs.vorbis import VorbisDecoder
-    from symphonia_tpu.core.codecs import AudioCodecParameters
+    from symphonia_tpu_torch.codecs.vorbis import VorbisDecoder
+    from symphonia_tpu_torch.core.codecs import AudioCodecParameters
+    from symphonia_tpu_torch.testing import vorbis_builder as vb
+    from symphonia_tpu_torch.testing.ogg_builder import _ogg_page
 
     bw = vb.BitWriterLsb()
     bw.write(0, 32)  # version
@@ -254,7 +281,8 @@ def build_mpa_l12(kind: str, frames: int, seed: int) -> bytes:
     Layer I/II test builders (``tests/test_layer12.py``): random allocations,
     scalefactors and samples per frame."""
     _paths()
-    from test_layer12 import _rand_l2_frame, build_l1_frame
+    from symphonia_tpu_torch.testing.mpa_l12_builder import (_rand_l2_frame,
+                                                             build_l1_frame)
 
     rng = np.random.default_rng(seed)
     out = []
@@ -298,11 +326,69 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def bound(nbytes: float, macs: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``macs``
+    fp32 multiply-adds (two operations each): the larger of the two
+    times at the published peaks, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * macs / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# The work of each kernel from its inputs' shapes (bytes, multiply-adds).
+def work_flac_lpc(order, L: int, n: int):
+    o = np.minimum(np.asarray(order, np.int64), n)
+    return 2 * L * n * 4 + L * 35 * 4, float((o * (n - o)).sum())
+
+
+def work_flac_decorrelate(F: int, n: int):
+    return 2 * F * 2 * n * 4 + F * 4, 0.0
+
+
+def work_mp3_hybrid(G: int, C: int):
+    return 2 * G * C * 576 * 4 + G * C * 5 + G, G * C * 32 * 36 * 18.0
+
+
+def work_mp3_synth(G: int, C: int):
+    return (2 * G * C * 576 * 4 + 1056 * 576 * 4 + C * 480 * 4,
+            G * C * 1056 * 576.0)
+
+
+def work_aac_imdct(L: int, n: int, prologue: bool):
+    nbytes = L * n * 4 + 2 * n * n * 4 + L * 2 * n * 4
+    if prologue:
+        nbytes += L * n * 2 + L * 64 * 4 + L * 4 + (1024 + 8192) * 4
+    return nbytes, L * 2.0 * n * n
+
+
+def work_aac_dequant(L: int):
+    return L * 1024 * 10 + L * 64 * 4 + L * 4 + (1024 + 8192) * 4, 0.0
+
+
+def work_aac_ola(L: int):
+    return L * 2048 * 4 + L * 1024 * 4 + L * 13 + 2 * 4 * 2 * 1024 * 4, 0.0
+
+
+def work_vorbis_imdct(L: int, n: int):
+    return L * n // 2 * 4 + n * n // 2 * 4 + L * n * 4, L * n * n / 2.0
+
+
+def work_mpa_l12_synth(F: int, C: int, T: int):
+    return (2 * F * C * 32 * T * 4 + 32 * (T + 15) * 32 * T * 4,
+            F * C * 32 * (T + 15) * 32.0 * T)
+
+
+def work_vorbis_lap(V: int, n1: int):
+    return V * n1 * 4 + n1 // 2 * 4 + V * n1 // 2 * 4, 0.0
+
+
 def phase_env() -> dict:
     import torch
 
     _paths()
-    from symphonia_tpu import native
+    from symphonia_tpu_torch import native
     from symphonia_tpu_torch.ops import _build
 
     if not native.available():
@@ -330,7 +416,6 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     """Each kernel against its twin on the card at the main path's shapes."""
     import torch
 
-    from symphonia_tpu.ops.mp3_dense import GranuleDenseState, granule_dense_np
     from symphonia_tpu_torch.ops import flac_dense as fd
     from symphonia_tpu_torch.ops import mp3_dense as md
 
@@ -358,7 +443,8 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     if not torch.equal(got, ref):
         raise AssertionError(f"flac_lpc differs from its twin: {err}")
     out["flac_lpc"] = dict(
-        max_abs_err=err, shape=[L, n],
+        max_abs_err=err, shape=[L, n], library_ms=None,
+        **bound(*work_flac_lpc(order.cpu().numpy(), L, n)),
         ms=cuda_ms(lambda: fd.lpc_reconstruct_batch(
             res, coefs, order, shift, n, wasted=wasted), 5),
         plain_ms=cuda_ms(lambda: fd.apply_wasted_bits(
@@ -375,7 +461,8 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
         raise AssertionError("flac_decorrelate differs from its twin")
     out["flac_decorrelate"] = dict(
         max_abs_err=int((got2.long() - ref2.long()).abs().max()),
-        shape=[L // 2, 2, n],
+        shape=[L // 2, 2, n], library_ms=None,
+        **bound(*work_flac_decorrelate(L // 2, n)),
         ms=cuda_ms(lambda: fd.decorrelate_batch(x, assign), 20),
         plain_ms=cuda_ms(lambda: fd.decorrelate_plain(x, assign), 5))
 
@@ -428,11 +515,15 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     if e_chunks > 1e-6:
         raise AssertionError(f"mp3 chained calls vs one call: {e_chunks}")
     out["mp3_hybrid"] = dict(
-        max_abs_err=e_m1, shape=[G, C, 576],
+        max_abs_err=e_m1, shape=[G, C, 576], library_ms=None,
+        **bound(*work_mp3_hybrid(G, C)),
         ms=cuda_ms(lambda: md.mp3_hybrid(*hyb_args), 20),
         plain_ms=cuda_ms(lambda: md.mp3_hybrid_plain(*hyb_args), 5))
+    poly_t = dense.polyphase.t()
     out["mp3_synth"] = dict(
         max_abs_err=e_m2, shape=[G, C, 576],
+        library_ms=cuda_ms(lambda: torch.matmul(S, poly_t), 20),
+        **bound(*work_mp3_synth(G, C)),
         ms=cuda_ms(lambda: md.mp3_synth(*syn_args), 20),
         plain_ms=cuda_ms(lambda: md.mp3_synth_plain(*syn_args), 20))
 
@@ -440,9 +531,9 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     g_small = 6
     x_s = xs[:g_small].cpu().numpy()
     bt_s, mx_s = bt_np[:g_small], mixed[:g_small].cpu().numpy()
-    states = [GranuleDenseState() for _ in range(C)]
+    states = [md.GranuleDenseState() for _ in range(C)]
     expect = np.stack([np.stack([
-        granule_dense_np(x_s[g, c].copy(), int(bt_s[g, c]), bool(mx_s[g, c]),
+        md.granule_dense_np(x_s[g, c].copy(), int(bt_s[g, c]), bool(mx_s[g, c]),
                          states[c]) for c in range(C)]) for g in range(g_small)])
     small = dense(xs[:g_small].contiguous(), bt[:g_small].contiguous(),
                   mixed[:g_small].contiguous())[0].cpu().numpy()
@@ -450,11 +541,17 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     if e_oracle > 2e-5:
         raise AssertionError(f"mp3 dense vs numpy oracle: {e_oracle}")
     print("phase 2 kernels vs twins:", json.dumps(
-        {**{k: {kk: (round(vv, 4) if kk.endswith("ms") else vv)
-                for kk, vv in v.items()} for k, v in out.items()},
+        {**_rounded(out),
          "mp3_chain_vs_cpu_twin": e_chain, "mp3_vs_numpy_oracle": e_oracle,
          "mp3_chunks_vs_one_call": e_chunks}), flush=True)
     return out
+
+
+def _rounded(out: dict) -> dict:
+    """Per-kernel results with their times rounded for printing."""
+    return {k: {kk: (round(vv, 4) if kk.endswith("ms") and vv is not None
+                     else vv) for kk, vv in v.items()}
+            for k, v in out.items()}
 
 
 def _bits_equal(a, b) -> bool:
@@ -469,9 +566,8 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
     """A1-A3 against their twins on the card at the main path's shapes."""
     import torch
 
-    from symphonia_tpu import native
-    from symphonia_tpu.codecs.aac import subband_info
-    from symphonia_tpu.ops.aac_dense import window_ola_chain
+    from symphonia_tpu_torch import native
+    from symphonia_tpu_torch.codecs.aac import subband_info
     from symphonia_tpu_torch.ops import aac_dense as ad
 
     dev = torch.device("cuda")
@@ -524,11 +620,15 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         errs[f"aac_imdct_{case}"] = err
         a1_ms[case] = (cuda_ms(lambda: ad.aac_imdct(*args), 10),
                        cuda_ms(lambda: ad.aac_imdct_plain(*args), 10))
+    # The library call: cuBLAS fp32 on the bare product (no dequant).
+    m_long_t = dense.imdct_long.t()
     out["aac_imdct"] = dict(
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("aac_imdct")),
         shape=[L, 1024], ms=a1_ms["long_prologue"][0],
         plain_ms=a1_ms["long_prologue"][1],
+        library_ms=cuda_ms(lambda: torch.matmul(x, m_long_t), 10),
+        **bound(*work_aac_imdct(L, 1024, True)),
         ms_by_case={k: [round(a, 4), round(b, 4)] for k, (a, b) in
                   a1_ms.items()})
 
@@ -546,6 +646,7 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
                              "host dequantization")
     out["aac_dequant"] = dict(
         max_abs_err=float((got - t(host)).abs().max()), shape=[L, 1024],
+        library_ms=None, **bound(*work_aac_dequant(L)),
         ms=cuda_ms(lambda: ad.aac_dequant(x, *quant), 20),
         plain_ms=cuda_ms(lambda: ad.aac_dequant_plain(x, *quant), 5))
 
@@ -579,31 +680,32 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         sl = slice(k * n_fr, (k + 1) * n_fr)
         pcms = [p.reshape(8, 256) if q == 2 else p
                 for p, q in zip(flat[sl], seqs[sl])]
-        chain = window_ola_chain(pcms, seqs[sl], shapes[sl].astype(bool),
+        chain = ad.window_ola_chain(pcms, seqs[sl], shapes[sl].astype(bool),
                                  prevs[sl].astype(bool))
         if not np.array_equal(small[sl].reshape(-1), chain):
             raise AssertionError(f"aac_ola differs from window_ola_chain "
                                  f"(sequence {k})")
     out["aac_ola"] = dict(
         max_abs_err=float((got - twin).abs().max()), shape=[L, 2048],
+        library_ms=None, **bound(*work_aac_ola(L)),
         ms=cuda_ms(lambda: dense.ola(pcm, *lanes), 20),
         plain_ms=cuda_ms(lambda: ad.aac_ola_plain(
             pcm, *lanes, *dense.ola_tables), 5))
     print("phase 2 aac kernels vs twins:", json.dumps(
-        {**{k: {kk: (round(vv, 4) if kk.endswith("ms") else vv)
-                for kk, vv in v.items()} for k, v in out.items()},
+        {**_rounded(out),
          **errs, "aac_ola_vs_window_ola_chain": "equal"}), flush=True)
     return out
 
 
 def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
-    """V1 and L1 against their twins on the card: V1 at the main path's
+    """V1, L1 and V2 against their twins on the card: V1 at the main path's
     block sizes and at both ends of the Vorbis range, L1 for Layer I and
     II at F frames, chained over calls against one call, and against the
-    reference's numpy polyphase on a few frames."""
+    reference's numpy polyphase on a few frames, V2 at the entry step's
+    width and at n1 = 64."""
     import torch
 
-    from symphonia_tpu.ops.mp3_dense import polyphase_response_np
+    from symphonia_tpu_torch.codecs.vorbis import vorbis_window
     from symphonia_tpu_torch.ops import mp3_dense as md
     from symphonia_tpu_torch.ops import vorbis_dense as vd
 
@@ -633,10 +735,15 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
             cuda_ms(lambda: vd.vorbis_imdct(x, m), 10),
             cuda_ms(lambda: vd.vorbis_imdct_plain(x, m), 10))
     main = f"{L}x1024->2048"
+    x = torch.from_numpy((rng.standard_normal((L, 1024)) * 100.0)
+                         .astype(np.float32)).to(dev)
+    m_t = dense.matrix(2048).t()
     out["vorbis_imdct"] = dict(
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("vorbis")),
         shape=[L, 1024], ms=v1_ms[main][0], plain_ms=v1_ms[main][1],
+        library_ms=cuda_ms(lambda: torch.matmul(x, m_t), 10),
+        **bound(*work_vorbis_imdct(L, 2048)),
         ms_by_case={k: [round(a, 4), round(b, 4)]
                     for k, (a, b) in v1_ms.items()})
 
@@ -674,7 +781,7 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         errs[f"mpa_l12_synth_{T}_chunks_vs_one_call"] = e_chain
         # The reference's numpy polyphase over six frames of channel 0.
         small = md.mpa_l12_synth(sb[:6].contiguous(), poly, None)[0]
-        expect = polyphase_response_np(np.concatenate(
+        expect = md.polyphase_response_np(np.concatenate(
             list(sb[:6, 0].cpu().numpy()), axis=1))[: 6 * 32 * T]
         e_np = float(np.abs(small[:, 0].reshape(-1).cpu().numpy()
                             - expect).max())
@@ -684,14 +791,41 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         l1_ms[f"T{T}"] = (cuda_ms(lambda: md.mpa_l12_synth(sb, poly, t0), 20),
                           cuda_ms(lambda: md.l12_synth_plain(sb, poly, t0),
                                   20))
+        if T == 36:
+            sb2, poly_t = sb.reshape(F * C, 32 * T), poly.t()
+            l1_lib = cuda_ms(lambda: torch.matmul(sb2, poly_t), 20)
     out["mpa_l12_synth"] = dict(
         max_abs_err=max(errs[f"mpa_l12_synth_{T}"] for T in (12, 36)),
         shape=[F, C, 32, 36], ms=l1_ms["T36"][0], plain_ms=l1_ms["T36"][1],
+        library_ms=l1_lib, **bound(*work_mpa_l12_synth(F, C, 36)),
         ms_by_case={k: [round(a, 4), round(b, 4)]
                     for k, (a, b) in l1_ms.items()})
+
+    # V2 on V1's output scale: bit for bit with its twin (each product and
+    # the sum rounded once, in the reference's order), at the entry step's
+    # width and at Vorbis's smallest block.
+    v2_ms = {}
+    for n1, V in ((2048, L), (64, 4096)):
+        tt = torch.from_numpy((rng.standard_normal((V, n1)) * 100.0)
+                              .astype(np.float32)).to(dev)
+        w = torch.from_numpy(vorbis_window(n1)).to(dev)
+        got = vd.vorbis_lap(tt, w)
+        ref = vd.vorbis_lap_plain(tt, w)
+        torch.cuda.synchronize()
+        if not _bits_equal(got, ref):
+            raise AssertionError(f"vorbis_lap [{V}, {n1}] differs from its "
+                                 f"twin: {float((got - ref).abs().max())}")
+        v2_ms[f"{V}x{n1}"] = (cuda_ms(lambda: vd.vorbis_lap(tt, w), 20),
+                              cuda_ms(lambda: vd.vorbis_lap_plain(tt, w), 20))
+    main = f"{L}x2048"
+    out["vorbis_lap"] = dict(
+        max_abs_err=0.0, shape=[L, 2048], ms=v2_ms[main][0],
+        plain_ms=v2_ms[main][1], library_ms=None,
+        **bound(*work_vorbis_lap(L, 2048)),
+        ms_by_case={k: [round(a, 4), round(b, 4)]
+                    for k, (a, b) in v2_ms.items()})
     print("phase 2 vorbis and layer I/II kernels vs twins:", json.dumps(
-        {**{k: {kk: (round(vv, 4) if kk.endswith("ms") else vv)
-                for kk, vv in v.items()} for k, v in out.items()},
+        {**_rounded(out),
          **errs}), flush=True)
     return out
 
@@ -882,6 +1016,113 @@ def phase_slice() -> dict:
     return info
 
 
+def _step_bound(host, size) -> dict:
+    """The entry step's bound: the sum of its stages' bounds (they run one
+    after another), from this run's inputs."""
+    F, N, G, A, V, n1 = (size[k] for k in ("F", "N", "G", "A", "V", "n1"))
+    n_short = int((host[13] == 2).sum())
+    stages = {
+        "flac_lpc": work_flac_lpc(host[2], 2 * F, N),
+        "flac_decorrelate": work_flac_decorrelate(F, N),
+        "mp3_hybrid": work_mp3_hybrid(G, 2),
+        "mp3_synth": work_mp3_synth(G, 2),
+        "aac_imdct_long": work_aac_imdct(A - n_short, 1024, True),
+        "aac_imdct_short": work_aac_imdct(8 * n_short, 128, False),
+        "aac_ola": work_aac_ola(A),
+        "vorbis_imdct": work_vorbis_imdct(V, n1),
+        "vorbis_lap": work_vorbis_lap(V, n1),
+    }
+    by_stage = {k: bound(*w) for k, w in stages.items()}
+    return {"bound_ms": sum(b["bound_ms"] for b in by_stage.values()),
+            "bound_by_stage": {k: [round(b["bound_ms"], 4), b["bound_by"]]
+                               for k, b in by_stage.items()}}
+
+
+def phase_entry_step() -> dict:
+    """The combined decode step (K14) at full width on the card against the
+    same step of the plain twins on the card, then a small step with
+    EIGHT_SHORT handoff lanes (A2's path)."""
+    import torch
+
+    from symphonia_tpu_torch import entry
+    from symphonia_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    N = STEP_SIZE["N"]
+    t0 = time.perf_counter()
+    host = entry.example_batch(**STEP_SIZE, seed=SEED)
+    args = [torch.from_numpy(a).to(dev) for a in host]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def run(a, n, plain=False):
+        fn = entry.decode_step_plain if plain else entry.decode_step
+        return fn(*a, n_samples=n)
+
+    _build.reset_launches()
+    got = run(args, N)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = run(args, N, plain=True)
+    torch.cuda.synchronize()
+    names = ("flac", "mp3", "aac", "vorbis")
+    errs, exact, ok = {}, {}, True
+    for name, g, w in zip(names, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"entry step {name}: {g.shape} {g.dtype} "
+                                 f"vs plain {w.shape} {w.dtype}")
+        if g.dtype == torch.float32 and not torch.isfinite(g).all():
+            raise AssertionError(f"entry step {name}: not finite")
+        errs[name] = float((g.double() - w.double()).abs().max())
+        exact[name] = (torch.equal(g, w) if g.dtype == torch.int32
+                       else _bits_equal(g, w))
+        ok &= exact[name] if name != "mp3" else errs[name] <= 1e-5
+    shapes = {n: list(g.shape) for n, g in zip(names, got)}
+    del got, want
+    step_ms = cuda_ms(lambda: run(args, N), 5)
+    plain_ms = cuda_ms(lambda: run(args, N, plain=True), 1)
+
+    # A few lanes of each codec with two EIGHT_SHORT handoff lanes (deq ==
+    # 0): A2 dequantizes them before the short IMDCTs.
+    small = list(entry.example_batch(F=4, N=64, G=4, A=12, V=4, n1=256,
+                                     seed=SEED))
+    small[13][[2, 5]] = 2
+    small[12][[2, 5, 7]] = 0
+    sargs = [torch.from_numpy(a).to(dev) for a in small]
+    _build.reset_launches()
+    sgot = run(sargs, 64)
+    torch.cuda.synchronize()
+    handoff_launches = dict(_build.LAUNCHES)
+    swant = run(sargs, 64, plain=True)
+    torch.cuda.synchronize()
+    handoff_errs = {n: float((g.double() - w.double()).abs().max())
+                    for n, g, w in zip(names, sgot, swant)}
+    # At a dozen lanes cuBLAS (the plain step's products) may pick another
+    # sum order than at full width: the reference's bars, not bits.
+    handoff_ok = (torch.equal(sgot[0], swant[0])
+                  and max(handoff_errs[n] for n in names[1:]) <= 1e-5)
+    info = {
+        "size": STEP_SIZE, "seed": SEED, "input_build_s": round(build_s, 2),
+        "output_shapes": shapes, "step_ms": step_ms, "plain_step_ms": plain_ms,
+        **_step_bound(host, STEP_SIZE), "launches": launches,
+        "max_abs_err_vs_plain": errs, "bit_exact_vs_plain": exact,
+        "handoff_launches": handoff_launches,
+        "handoff_max_abs_err_vs_plain": handoff_errs,
+        "card": card_line(),
+    }
+    print("phase 4 entry step:", json.dumps(info), flush=True)
+    missing = [k for k in STEP_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"entry step: {missing} not launched")
+    if not ok:
+        raise AssertionError("entry step vs its plain twin: FLAC, AAC and "
+                             "Vorbis must be bit-exact, MP3 within 1e-5")
+    if handoff_launches["aac_dequant"] != 1 or not handoff_ok:
+        raise AssertionError("entry step with short handoff lanes: A2 not "
+                             "launched once, or the step outside the bars")
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -895,14 +1136,23 @@ def main() -> int:
     kern.update(phase_aac_kernels())
     kern.update(phase_vorbis_l12_kernels())
     sl = phase_slice()
+    st = phase_entry_step()
+    paths = {"decode_many": sl["launches"], "entry_step": st["launches"],
+             "entry_step_handoff": st["handoff_launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
+        by_path = {p: counts[name] for p, counts in paths.items()}
+        if sum(by_path.values()) <= 0:
+            raise AssertionError(f"{name} was launched on no path")
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces,
-                     "launches": sl["launches"][name],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"]})
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"],
+                     "library_ms": k["library_ms"], "shape": k["shape"]})
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

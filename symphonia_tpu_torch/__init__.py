@@ -1,18 +1,82 @@
 """symphonia_tpu_torch — the PyTorch/CUDA port of symphonia_tpu.
 
-The host stage (probe, demuxers, native C++ entropy extraction) is the
-reference package's own, imported; the dense decode math runs on an
-explicit device through kernels written by hand for NVIDIA Hopper
-(``csrc/*.cu``, built with nvcc on first use) or, on CPU tensors, through
-their plain PyTorch twins. This package never imports JAX.
+The package stands alone: its host stage (probe, demuxers, metadata, the
+per-packet codecs, the numpy oracles and table builders, and the loader
+of the repository's native C++ host library, ``native/``) is its own copy
+of the reference package's, and nothing here imports ``symphonia_tpu`` or
+JAX. The dense decode math runs on an explicit device through kernels
+written by hand for NVIDIA Hopper (``csrc/*.cu``, built with nvcc on first
+use) or, on CPU tensors, through their plain PyTorch twins.
 
 Ported so far: FLAC, MPEG audio Layers I, II and III, AAC-LC and Ogg
 Vorbis through :mod:`.batch` (``decode_bytes``, ``decode_many``,
-``decode_file``).
+``decode_file``), and the combined four-codec decode step of the
+reference's driver entry point through :mod:`.entry`.
+
+Facade (as the reference's, symphonia/src/lib.rs): lazily constructed
+global ``Probe`` and ``CodecRegistry`` with every enabled format and codec
+registered.
 """
 
-from .batch import (AacBatchDecoder, DecodedAudio,  # noqa: F401
-                    FlacBatchDecoder, Mp3BatchDecoder, VorbisBatchDecoder,
-                    decode_bytes, decode_file, decode_many)
+from __future__ import annotations
+
+from typing import Optional
+
+from .core import CodecRegistry, Probe
 
 __version__ = "0.1.0"
+
+_PROBE: Optional[Probe] = None
+_CODECS: Optional[CodecRegistry] = None
+
+
+def get_probe() -> Probe:
+    """The global format/metadata probe (symphonia/src/lib.rs:225)."""
+    global _PROBE
+    if _PROBE is None:
+        _PROBE = Probe()
+        _register_enabled_formats(_PROBE)
+    return _PROBE
+
+
+def get_codecs() -> CodecRegistry:
+    """The global codec registry (symphonia/src/lib.rs:215)."""
+    global _CODECS
+    if _CODECS is None:
+        _CODECS = CodecRegistry()
+        _register_enabled_codecs(_CODECS)
+    return _CODECS
+
+
+def _register_enabled_formats(probe: Probe) -> None:
+    """Register every format reader and metadata reader
+    (symphonia/src/lib.rs:234-300 register_enabled_formats)."""
+    from .formats import adts, aiff, caf, flac, isomp4, mkv, mpa, ogg, wav
+    from .metadata import ape, id3v1, id3v2
+
+    for mod in (wav, aiff, caf, flac, mpa, ogg, adts, isomp4, mkv, id3v2,
+                id3v1):
+        probe.register(mod.DESCRIPTOR)
+    probe.register(ape.DESCRIPTOR)
+    probe.register(ape.DESCRIPTOR_BEFORE_ID3V1)
+
+
+def _register_enabled_codecs(registry: CodecRegistry) -> None:
+    """Register every decoder (symphonia/src/lib.rs
+    register_enabled_codecs)."""
+    from .codecs.aac import AacDecoder
+    from .codecs.adpcm import AdpcmDecoder
+    from .codecs.alac import AlacDecoder
+    from .codecs.flac import FlacDecoder
+    from .codecs.mpa import MpaDecoder
+    from .codecs.pcm import PcmDecoder
+    from .codecs.vorbis import VorbisDecoder
+
+    for cls in (PcmDecoder, AdpcmDecoder, FlacDecoder, MpaDecoder,
+                VorbisDecoder, AacDecoder, AlacDecoder):
+        registry.register_audio_decoder(cls)
+
+
+from .batch import (AacBatchDecoder, DecodedAudio,  # noqa: E402,F401
+                    FlacBatchDecoder, Mp3BatchDecoder, VorbisBatchDecoder,
+                    decode_bytes, decode_file, decode_many)

@@ -1,11 +1,11 @@
 """Batch decode sessions on PyTorch: files -> PCM through the port's kernels.
 
 Port of ``symphonia_tpu/batch.py`` for FLAC, MPEG audio (Layers I, II and
-III), AAC-LC and Ogg Vorbis. The host stage is the reference package's own
-(probe, demuxers, native C++ entropy extraction); the dense stage runs on
-the ``device`` every decoder is given explicitly: the hand-written CUDA
-kernels on ``"cuda"``, their plain PyTorch twins on ``"cpu"``. Nothing picks
-a device or falls back to the CPU on its own.
+III), AAC-LC and Ogg Vorbis. The host stage (probe, demuxers, native C++
+entropy extraction) is the port's own copy of the reference's; the dense
+stage runs on the ``device`` every decoder is given explicitly: the
+hand-written CUDA kernels on ``"cuda"``, their plain PyTorch twins on
+``"cpu"``. Nothing picks a device or falls back to the CPU on its own.
 
 Only the cases where the reference itself leaves the device take the host
 route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed
@@ -23,8 +23,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from symphonia_tpu.core.errors import DecodeError, Unsupported
-from symphonia_tpu.core.io import MediaSourceStream
+from .core.errors import DecodeError, Unsupported
+from .core.io import MediaSourceStream
 
 from .ops import flac_dense
 from .ops.aac_dense import LANE_KEYS, AacDense
@@ -72,7 +72,7 @@ def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
     (the all-zero sentinel)."""
     if si.md5 == b"\x00" * 16:
         return None
-    from symphonia_tpu.codecs.flac import md5_bytes_of
+    from .codecs.flac import md5_bytes_of
 
     return hashlib.md5(
         md5_bytes_of(samples.astype(np.int64), si.bits_per_sample)
@@ -113,7 +113,7 @@ class FlacBatchDecoder:
         ``packed`` is the native-extracted lane tensor dict; None means the
         caller takes the robust per-frame parse (native unavailable,
         malformed frames, desynced fast scan)."""
-        from symphonia_tpu import native
+        from . import native
 
         si = reader.stream_info
         packed = None
@@ -163,8 +163,8 @@ class FlacBatchDecoder:
 
     def decode_bytes(self, data: bytes, _reader=None,
                      _extracted=None) -> DecodedAudio:
-        from symphonia_tpu.codecs.flac import parse_frame
-        from symphonia_tpu.formats.flac import FlacReader
+        from .codecs.flac import parse_frame
+        from .formats.flac import FlacReader
 
         reader = (_reader if _reader is not None
                   else FlacReader(MediaSourceStream(data)))
@@ -251,7 +251,7 @@ class FlacBatchDecoder:
         frame lanes of every stream with the same channel count share the
         lane chunks; per-file outputs are unchanged. Streams whose host
         stage yields no packed lanes take their per-file path."""
-        from symphonia_tpu.formats.flac import FlacReader
+        from .formats.flac import FlacReader
 
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         jobs = []  # (result idx, stream_info, packed, blocks)
@@ -344,8 +344,8 @@ class Mp3BatchDecoder:
         return self._l12
 
     def _reader(self, data: bytes):
-        from symphonia_tpu.core.formats import FormatOptions
-        from symphonia_tpu.formats.mpa import MpaReader
+        from .core.formats import FormatOptions
+        from .formats.mpa import MpaReader
 
         return MpaReader(MediaSourceStream(data),
                          FormatOptions(enable_gapless=self.gapless))
@@ -355,7 +355,7 @@ class Mp3BatchDecoder:
         """Native Layer III extraction, copied out of the pooled buffers:
         (spectra [G, C, 576], bt [G, C], mixed [G, C]) or None when the
         stream is malformed."""
-        from symphonia_tpu import native
+        from . import native
 
         ext = native.mp3_extract(reader._buf, reader._offsets, reader._sizes,
                                  max_granules=2 * len(reader._offsets) + 2)
@@ -388,8 +388,8 @@ class Mp3BatchDecoder:
                 else np.zeros((0, C, 576), np.float32))
 
     def decode_bytes(self, data: bytes) -> DecodedAudio:
-        from symphonia_tpu import native
-        from symphonia_tpu.codecs.mpa_common import LAYER3
+        from . import native
+        from .codecs.mpa_common import LAYER3
 
         reader = self._reader(data)
         h = reader.header
@@ -413,9 +413,9 @@ class Mp3BatchDecoder:
         where the reference falls back to its sequential decoder, when the
         native library is missing or rejects a frame, a header does not
         parse, or a frame has another channel count or layer."""
-        from symphonia_tpu import native
-        from symphonia_tpu.codecs.mpa_common import LAYER1, parse_header
-        from symphonia_tpu.codecs.mpa_layer12 import (_find_sb_info,
+        from . import native
+        from .codecs.mpa_common import LAYER1, parse_header
+        from .codecs.mpa_layer12 import (_find_sb_info,
                                                       _intensity_bound,
                                                       tables)
 
@@ -470,8 +470,8 @@ class Mp3BatchDecoder:
         per-granule boundary mask breaks the hybrid and polyphase chains at
         file starts, so merged output equals per-file output. Streams that
         are not native-extractable Layer III take their per-file path."""
-        from symphonia_tpu import native
-        from symphonia_tpu.codecs.mpa_common import LAYER3
+        from . import native
+        from .codecs.mpa_common import LAYER3
 
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         jobs = []  # (idx, reader, spectra, bt, mixed)
@@ -558,11 +558,11 @@ class AacBatchDecoder:
         another channel count, the reference's Python oracle decodes the
         coefficients instead (undecodable packets are skipped, as the
         reference's decode loop does)."""
-        import symphonia_tpu as sym
-        from symphonia_tpu import native
-        from symphonia_tpu.codecs.aac import AacDecoder
+        from . import get_probe
+        from . import native
+        from .codecs.aac import AacDecoder
 
-        fmt = sym.get_probe().probe(MediaSourceStream(data)).format
+        fmt = get_probe().probe(MediaSourceStream(data)).format
         track = _audio_track_or_raise(fmt)
         if track.codec_params.codec != "aac":
             raise DecodeError("not an AAC stream")
@@ -676,9 +676,9 @@ class VorbisBatchDecoder:
         or when a packet is malformed, the reference's Python oracle
         decodes the spectra instead, skipping undecodable packets (and
         their trims) as the reference's decode loop does."""
-        from symphonia_tpu import native
-        from symphonia_tpu.codecs.vorbis import VorbisDecoder
-        from symphonia_tpu.formats.ogg import OggReader
+        from . import native
+        from .codecs.vorbis import VorbisDecoder
+        from .formats.ogg import OggReader
 
         reader = OggReader(MediaSourceStream(data))
         track = _audio_track_or_raise(reader)
@@ -716,7 +716,7 @@ class VorbisBatchDecoder:
     def _finish(track, pcm: np.ndarray, trims) -> DecodedAudio:
         """Trims (the trim_end sum from the tail, then the trim_start sum
         from the head), then Vorbis channel order -> output order."""
-        from symphonia_tpu.codecs.vorbis import _CHANNEL_MAP
+        from .codecs.vorbis import _CHANNEL_MAP
 
         total_trim_end = sum(t[1] for t in trims)
         if total_trim_end:
@@ -765,22 +765,20 @@ def _audio_track_or_raise(fmt):
 
 def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
     """Exact per-packet host decode of a FLAC or MPEG audio stream, for the
-    cases where the reference also leaves the device. Builds the decoder
-    directly (the reference's codec registry would import the JAX
-    package)."""
+    cases where the reference also leaves the device."""
     global host_routes
-    import symphonia_tpu as sym
-    from symphonia_tpu.core.formats import FormatOptions
+    from . import get_probe
+    from .core.formats import FormatOptions
 
-    probed = sym.get_probe().probe(
+    probed = get_probe().probe(
         MediaSourceStream(data), fmt_opts=FormatOptions(enable_gapless=gapless))
     fmt = probed.format
     track = _audio_track_or_raise(fmt)
     codec = track.codec_params.codec
     if codec == "flac":
-        from symphonia_tpu.codecs.flac import FlacDecoder as Dec
+        from .codecs.flac import FlacDecoder as Dec
     elif codec in ("mp1", "mp2", "mp3"):
-        from symphonia_tpu.codecs.mpa import MpaDecoder as Dec
+        from .codecs.mpa import MpaDecoder as Dec
     else:
         raise _not_ported(codec)
     host_routes += 1
@@ -814,12 +812,12 @@ def _route(data: bytes) -> str:
     """Probe one stream -> 'flac', 'mp1'/'mp2'/'mp3' or 'vorbis' for the
     batch pipelines (native containers only, as in the reference), 'aac'
     in any container, else a label of what it is."""
-    import symphonia_tpu as sym
-    from symphonia_tpu.formats.flac import FlacReader
-    from symphonia_tpu.formats.mpa import MpaReader
-    from symphonia_tpu.formats.ogg import OggReader
+    from . import get_probe
+    from .formats.flac import FlacReader
+    from .formats.mpa import MpaReader
+    from .formats.ogg import OggReader
 
-    fmt = sym.get_probe().probe(MediaSourceStream(data)).format
+    fmt = get_probe().probe(MediaSourceStream(data)).format
     track = _audio_track_or_raise(fmt)
     codec = track.codec_params.codec
     if codec == "flac" and isinstance(fmt, FlacReader):

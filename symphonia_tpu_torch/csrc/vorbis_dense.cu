@@ -1,5 +1,7 @@
-// Vorbis dense stage for Hopper (sm_90a): kernel V1 vorbis_imdct. It
-// replaces symphonia_tpu/ops/vorbis_dense.py:21 _imdct_jax (K10):
+// Vorbis dense stage for Hopper (sm_90a): kernels V1 vorbis_imdct and V2
+// vorbis_lap.
+//
+// V1 replaces symphonia_tpu/ops/vorbis_dense.py:21 _imdct_jax (K10):
 //   Y[L, n] = X[L, n/2] . M^T,  M = imdct_matrix(n), [n, n/2] unscaled fp32,
 // one launch per block size n (a power of two, 64..8192), over the
 // packet-channel lanes of every stream with that block size.
@@ -17,6 +19,19 @@
 // again. Even then a block does 33.5M multiply-adds per 3 MB read, about
 // the card's fp32 ridge (~20 flop/byte), so the kernel stays near its
 // arithmetic bound.
+//
+// V2 vorbis_lap replaces the Vorbis lap of the driver's combined decode
+// step (__graft_entry__.py:117-121, in K14): over V equal-size blocks of n1
+// samples (V1's output t [V, n1]) with the window slope w [n1/2],
+//   pcm[r, j] = ov[r, j] * w[n1/2 - 1 - j] + t[r, j] * w[j],  j < n1/2,
+// where ov[r] = t[r - 1, n1/2:] and ov[0] = 0. One thread per output
+// sample; each reads its lane's first half and the previous lane's second
+// half, so no block waits for another. Bound by memory: each t row is read
+// once as a whole (its halves by two lanes' threads), 4 B written per
+// output. The reference rounds each product and the sum; nvcc would
+// contract a * b + c into one fused multiply-add, so both products and the
+// sum are explicit __fmul_rn / __fadd_rn and the kernel equals its twin bit
+// for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,6 +59,21 @@ vorbis_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
   simt_gemm::store_tile(Y, acc, row0, L, col0, n);
 }
 
+constexpr int kLapThreads = 256;
+
+__global__ void __launch_bounds__(kLapThreads)
+vorbis_lap_kernel(const float* __restrict__ t, const float* __restrict__ w,
+                  float* __restrict__ pcm, int64_t total, int h) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kLapThreads
+                    + threadIdx.x;
+  if (i >= total) return;
+  const int64_t r = i / h;
+  const int j = static_cast<int>(i - r * h);
+  const float ov = r > 0 ? t[(2 * r - 1) * h + j] : 0.f;
+  pcm[i] = __fadd_rn(__fmul_rn(ov, w[h - 1 - j]),
+                     __fmul_rn(t[2 * r * h + j], w[j]));
+}
+
 }  // namespace
 
 // Y [L, n] = X [L, n/2] . M^T, M [n, n/2]; n a power of two in 64..8192.
@@ -58,5 +88,22 @@ extern "C" int vorbis_imdct_launch(const void* X, const void* M, void* Y,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(X), static_cast<const float*>(M),
       static_cast<float*>(Y), L, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pcm [V, n1/2] = the lap of t [V, n1] (consecutive blocks of n1 samples)
+// with the window slope w [n1/2]; n1 even.
+extern "C" int vorbis_lap_launch(const void* T, const void* W, void* P,
+                                 int64_t V, int n1, void* stream) {
+  if (V <= 0) return static_cast<int>(cudaGetLastError());
+  if (n1 < 2 || n1 % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int h = n1 / 2;
+  const int64_t total = V * h;
+  const int64_t blocks = (total + kLapThreads - 1) / kLapThreads;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  vorbis_lap_kernel<<<static_cast<unsigned>(blocks), kLapThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(T), static_cast<const float*>(W),
+      static_cast<float*>(P), total, h);
   return static_cast<int>(cudaGetLastError());
 }

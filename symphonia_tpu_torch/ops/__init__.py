@@ -10,6 +10,10 @@ a plain PyTorch twin beside it.
   their prologue (kernel A1), that dequantization alone (A2), and the
   window/overlap-add over many sequences in one launch (A3).
 * ``vorbis_dense`` — Vorbis IMDCTs in fp32, one per block size (kernel V1,
-  A1's GEMM tile).
+  A1's GEMM tile), and the equal-size lap of the combined decode step
+  (kernel V2).
 * ``_build`` — nvcc build, ctypes loading and launch counts.
+
+Host-only modules, numpy: ``imdct_host`` (the per-packet decoders' fast
+IMDCT) and ``pcm`` (PCM bytes -> samples), copies of the reference's.
 """

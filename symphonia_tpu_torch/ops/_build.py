@@ -37,7 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
-           "mpa_l12_synth")
+           "mpa_l12_synth", "vorbis_lap")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -71,6 +71,8 @@ _SIGNATURES = {
     "vorbis_imdct_launch": [_P] * 3 + [_I, _I, _P],
     # sb, M, tail0, pcm, tail_out, F, C, T, stream
     "mpa_l12_synth_launch": [_P] * 5 + [_I, _I, _I, _P],
+    # t, w, pcm, V, n1, stream
+    "vorbis_lap_launch": [_P] * 3 + [_I64, _I, _P],
 }
 
 

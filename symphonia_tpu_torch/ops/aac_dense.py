@@ -18,24 +18,122 @@ Three kernels (``csrc/aac_dense.cu``):
   is true where a sequence starts (its previous delay is zero).
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
-kernel for CUDA tensors, or raises. The constant tables are the reference
-package's numpy builders, imported (they are numpy only), and held as
+kernel for CUDA tensors, or raises. The constant tables come from the
+reference package's numpy builders (``codecs/aac.py`` and ``_ola_tables``
+below, copied with the sequential oracle ``window_ola_chain`` from
+``symphonia_tpu/ops/aac_dense.py:179-205, 277-327``) and are held as
 buffers of :class:`AacDense`.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from symphonia_tpu.codecs.aac import EIGHT_SHORT, imdct_matrix_scaled
-from symphonia_tpu.native import aac_pow43, aac_sfb_map
-from symphonia_tpu.ops.aac_dense import _ola_tables
-
+from ..codecs.aac import (
+    EIGHT_SHORT,
+    LONG_START,
+    LONG_STOP,
+    ONLY_LONG,
+    Dsp,
+    imdct_matrix_scaled,
+)
+from ..native import aac_pow43, aac_sfb_map
 from . import _build
+
+# ---------------------------------------------------------------------------
+# The window tables and the sequential oracle (numpy)
+# ---------------------------------------------------------------------------
+
+_P0 = 512 - 64
+_P1 = 512 + 64
+
+
+@lru_cache(maxsize=None)
+def _ola_tables():
+    """Per-(seq, shape) window vectors for the batched OLA.
+
+    head[seq, prev_shape] multiplies pcm[:1024]; delay[seq, shape]
+    multiplies pcm[1024:] (dsp.rs:56-159 re-expressed as frame-local
+    elementwise products — the overlap-add only ever spans adjacent
+    frames, so the whole chain batches with one roll)."""
+    dsp = Dsp()
+    longs = [dsp.sine_long, dsp.kbd_long]
+    shorts = [dsp.sine_short, dsp.kbd_short]
+    z448 = np.zeros(448, np.float32)
+    o448 = np.ones(448, np.float32)
+    head = np.zeros((4, 2, 1024), np.float32)
+    delay = np.zeros((4, 2, 1024), np.float32)
+    for sh in range(2):
+        head[ONLY_LONG, sh] = longs[sh]
+        head[LONG_START, sh] = longs[sh]
+        head[LONG_STOP, sh] = np.concatenate([z448, shorts[sh], o448])
+        delay[ONLY_LONG, sh] = longs[sh][::-1]
+        delay[LONG_STOP, sh] = longs[sh][::-1]
+        delay[LONG_START, sh] = np.concatenate([o448, shorts[sh][::-1], z448])
+    # Short-window left/right half-window vectors.
+    s_first = np.stack(shorts)          # [2,128] left window of w=0 (prev shape)
+    s_left = np.stack(shorts)           # [2,128] left window of w>0 (cur shape)
+    s_right = np.stack([s[::-1] for s in shorts])  # [2,128]
+    return head, delay, s_first, s_left, s_right
+
+
+def window_ola_chain(
+    pcms: Sequence[np.ndarray],
+    seqs: Sequence[int],
+    shapes: Sequence[bool],
+    prev_shapes: Sequence[bool],
+) -> np.ndarray:
+    """The stateful window/overlap-add chain over a frame sequence for one
+    channel (dsp.rs:56-159 with the IMDCT precomputed). Returns the
+    concatenated 1024-sample frames."""
+    dsp = Dsp()
+    delay = np.zeros(1024, np.float32)
+    outs = []
+    for pcm, seq, shape, prev_shape in zip(pcms, seqs, shapes, prev_shapes):
+        long_win = dsp.kbd_long if shape else dsp.sine_long
+        short_win = dsp.kbd_short if shape else dsp.sine_short
+        prev_long = dsp.kbd_long if prev_shape else dsp.sine_long
+        prev_short = dsp.kbd_short if prev_shape else dsp.sine_short
+        dst = np.empty(1024, np.float32)
+        if seq == EIGHT_SHORT:
+            short = np.zeros(1152, np.float32)
+            for w in range(8):
+                src = pcm[w]
+                left_w = prev_short if w == 0 else short_win
+                if w == 0:
+                    short[:128] = src[:128] * left_w
+                    short[128:256] = src[128:256] * short_win[::-1]
+                else:
+                    short[w * 128 : w * 128 + 128] += src[:128] * short_win
+                    short[w * 128 + 128 : w * 128 + 256] += src[128:] * short_win[::-1]
+            dst[:_P0] = delay[:_P0]
+            dst[_P0:] = delay[_P0:] + short[: 1024 - _P0]
+            new_delay = np.zeros(1024, np.float32)
+            new_delay[:_P1] = short[_P1 : 2 * _P1]
+        elif seq in (ONLY_LONG, LONG_START):
+            dst[:] = delay + pcm[:1024] * prev_long
+            if seq == ONLY_LONG:
+                new_delay = pcm[1024:] * long_win[::-1]
+            else:
+                new_delay = np.zeros(1024, np.float32)
+                new_delay[:_P0] = pcm[1024 : 1024 + _P0]
+                new_delay[_P0:_P1] = (
+                    pcm[1024 + _P0 : 1024 + _P1] * short_win[::-1][: _P1 - _P0]
+                )
+        else:  # LONG_STOP
+            dst[:_P0] = delay[:_P0]
+            dst[_P0:_P1] = delay[_P0:_P1] + pcm[_P0:_P1] * prev_short[: _P1 - _P0]
+            dst[_P1:] = delay[_P1:] + pcm[_P1:1024]
+            new_delay = pcm[1024:] * long_win[::-1]
+        delay = new_delay
+        outs.append(dst)
+    return np.concatenate(outs) if outs else np.zeros(0, np.float32)
+
 
 # The dequant handoff's operands: (qbuf [L, 1024] i16, scales [L, 64] f32,
 # deq [L] i32, sfb_map [1024] i32, pow43 [8192] f32).
@@ -47,7 +145,7 @@ _OLA_KEYS = ("ola_head", "ola_delay", "ola_s_first", "ola_s_left",
 
 
 def reference_tables() -> Dict[str, np.ndarray]:
-    """The dense stage's constants, from the reference builders."""
+    """The dense stage's constants, from the numpy builders."""
     head, delay, s_first, s_left, s_right = _ola_tables()
     return {
         "imdct_long": imdct_matrix_scaled(1024),   # [2048, 1024]

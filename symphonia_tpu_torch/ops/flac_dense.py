@@ -187,11 +187,12 @@ def pack_parsed_frames(frames, n_max: int | None = None):
     Returns a dict of numpy arrays: res [L, n_max], coefs [L, 32],
     order/shift/wasted [L], block sizes, assignment codes [F] and per-frame
     bps. Lanes are frame-major (lane = f * C + c) with C = max channel
-    count in the batch. Same layout as the reference's packer, whose module
-    imports JAX at its top and so cannot be imported here."""
-    from symphonia_tpu.codecs.flac import (SF_CONSTANT, SF_FIXED, SF_LPC,
+    count in the batch. Same layout as the reference's packer
+    (``symphonia_tpu/ops/flac_dense.py``), written here because that module
+    runs the JAX programs."""
+    from ..codecs.flac import (SF_CONSTANT, SF_FIXED, SF_LPC,
                                            SF_VERBATIM)
-    from symphonia_tpu.common.flac import (CHANNELS_LEFT_SIDE,
+    from ..common.flac import (CHANNELS_LEFT_SIDE,
                                            CHANNELS_MID_SIDE,
                                            CHANNELS_RIGHT_SIDE)
 

@@ -24,30 +24,264 @@ and the 480-sample tail overlaps the next ceil(480 / 32T) frames (two for
 Layer I), with a carried ``synth_tail [C, 480]`` between calls. One kernel,
 ``mpa_l12_synth`` (L1), M2's body for those T.
 
-The operator tables are the reference package's numpy builders, imported
-(they are numpy only) and held as buffers of :class:`Mp3Dense` and
-:class:`L12Dense`.
+The operator tables come from the numpy builders below, the reference
+package's own, copied (``symphonia_tpu/ops/mp3_dense.py:29-259``), and are
+held as buffers of :class:`Mp3Dense` and :class:`L12Dense`. The numpy
+granule chain beside them (``granule_dense_np``) is the oracle and serves
+the per-packet decoder.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from symphonia_tpu.ops.mp3_dense import (BLOCK_LONG, BLOCK_SHORT,
-                                         _polyphase_combined_matrix,
-                                         antialias_coeffs,
-                                         freq_inversion_mask,
-                                         hybrid_matrices)
-
 from . import _build
+
+BLOCK_LONG = 0
+BLOCK_START = 1
+BLOCK_SHORT = 2
+BLOCK_END = 3
+
+
+# ---------------------------------------------------------------------------
+# Table construction (all from ISO/IEC 11172-3 formulas)
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def imdct_windows() -> np.ndarray:
+    """The four 36-point block windows (hybrid_synthesis.rs:53-92)."""
+    w = np.zeros((4, 36))
+    i = np.arange(36)
+    w[BLOCK_LONG] = np.sin(np.pi / 36 * (i + 0.5))
+    w[BLOCK_START, :18] = np.sin(np.pi / 36 * (i[:18] + 0.5))
+    w[BLOCK_START, 18:24] = 1.0
+    w[BLOCK_START, 24:30] = np.sin(np.pi / 12 * (np.arange(24, 30) - 18 + 0.5))
+    w[BLOCK_SHORT, :12] = np.sin(np.pi / 12 * (i[:12] + 0.5))
+    w[BLOCK_END, 6:12] = np.sin(np.pi / 12 * (np.arange(6, 12) - 6 + 0.5))
+    w[BLOCK_END, 12:18] = 1.0
+    w[BLOCK_END, 18:] = np.sin(np.pi / 36 * (i[18:] + 0.5))
+    return w
+
+
+@lru_cache(maxsize=None)
+def hybrid_matrices() -> np.ndarray:
+    """``T[bt] @ x[18] -> tmp[36]`` for each block type.
+
+    Long/start/end: tmp[i] = w[i] * sum_k x[k] cos(pi/72 (2i+19)(2k+1)).
+    Short: three 12-point IMDCTs of the interleaved windows, windowed and
+    overlap-laid into tmp[6..30] (hybrid_synthesis.rs imdct12_win).
+    """
+    wins = imdct_windows()
+    T = np.zeros((4, 36, 18))
+    i = np.arange(36)[:, None]
+    k = np.arange(18)[None, :]
+    imdct36 = np.cos(np.pi / 72 * (2 * i + 19) * (2 * k + 1))
+    for bt in (BLOCK_LONG, BLOCK_START, BLOCK_END):
+        T[bt] = imdct36 * wins[bt][:, None]
+    # Short blocks.
+    ii = np.arange(12)[:, None]
+    kk = np.arange(6)[None, :]
+    imdct12 = np.cos(np.pi / 24 * (2 * ii + 7) * (2 * kk + 1))  # [12, 6]
+    ws = wins[BLOCK_SHORT][:12]
+    for w in range(3):
+        for iout in range(12):
+            for kin in range(6):
+                T[BLOCK_SHORT, 6 + 6 * w + iout, 3 * kin + w] += (
+                    imdct12[iout, kin] * ws[iout]
+                )
+    return T.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def antialias_coeffs():
+    """cs/ca butterfly coefficients (ISO 11172-3 Table B.9 construction)."""
+    c = np.array([-0.6, -0.535, -0.33, -0.185, -0.095, -0.041, -0.0142, -0.0037])
+    den = np.sqrt(1.0 + c * c)
+    return (1.0 / den).astype(np.float32), (c / den).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def polyphase_matrix() -> np.ndarray:
+    """Spec matrixing N[i, k] = cos((16 + i)(2k + 1) pi / 64), [64, 32]."""
+    i = np.arange(64)[:, None]
+    k = np.arange(32)[None, :]
+    return np.cos((16 + i) * (2 * k + 1) * np.pi / 64).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def synthesis_window() -> np.ndarray:
+    """ISO Table B.3 synthesis window D reshaped to [16, 32]."""
+    from ..codecs.mpa_common import tables
+
+    return tables()["synthesis_d"].reshape(16, 32)
+
+
+@lru_cache(maxsize=None)
+def freq_inversion_mask() -> np.ndarray:
+    """[32, 18] sign mask: odd samples of odd subbands are negated
+    (hybrid_synthesis.rs frequency_inversion)."""
+    sb = np.arange(32)[:, None]
+    t = np.arange(18)[None, :]
+    return np.where((sb & 1) & (t & 1), -1.0, 1.0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _polyphase_combined_matrix(T: int = 18) -> np.ndarray:
+    """[(T+15)*32, T*32] matrix for an ENTIRE polyphase stage.
+
+    T = 18 for Layer III granules, 12 for Layer I frames, 36 for Layer II
+    frames (the [1056, 576] L3 shape documented below generalizes).
+
+    Folds the [64, 32] matrixing, the v[64] tap selection, and the 512-tap
+    windowed FIR (synthesis.rs:158-348) into one dense operator:
+    ``resp_vec = M @ vec(S)`` with ``vec(S)[t*32+k] = sb_time[t, k]`` and
+    ``resp_vec[m*32+i]`` the response sample at FIR slot m, subsample i.
+    Entry: M[(m,i), (t,:)] = D[32*(m-t)+i] * N[q(m-t, i), :] for
+    0 <= m-t < 16. Built in f64, cast f32; on device the whole stage is a
+    single K=576 MXU matmul per channel (batch axis minor — see
+    mp3_dense_batch_jax's layout note)."""
+    N = polyphase_matrix().astype(np.float64)
+    W = synthesis_window().astype(np.float64)
+    q = _synth_sel_idx()
+    M = np.zeros(((T + 15) * 32, T * 32))
+    for m in range(T + 15):
+        for k in range(16):
+            t = m - k
+            if 0 <= t < T:
+                for i in range(32):
+                    M[m * 32 + i, t * 32 : (t + 1) * 32] += W[k, i] * N[q[k, i]]
+    return M.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _synth_sel_idx() -> np.ndarray:
+    """QIDX[k, i]: which of v[64] feeds output tap k at sample i
+    (even k -> lower half, odd k -> upper half; synthesis.rs:313-324)."""
+    k = np.arange(16)[:, None]
+    i = np.arange(32)[None, :]
+    return (i + 32 * (k & 1)).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# numpy granule pipeline (oracle + stateful per-packet path)
+# ---------------------------------------------------------------------------
+
+
+def antialias_np(x: np.ndarray, n_boundaries: int) -> np.ndarray:
+    """Anti-alias butterflies on a [32, 18] granule buffer.
+
+    ``n_boundaries``: 31 for long-ish blocks, 1 for mixed, 0 for short
+    (hybrid_synthesis.rs:224-280; applying the butterfly at a boundary
+    between two zero subbands is a no-op, so the rzero bound is dropped).
+    """
+    if n_boundaries == 0:
+        return x
+    cs, ca = antialias_coeffs()
+    y = x.copy()
+    # Each boundary butterfly touches samples 10..17 of subband b-1 and
+    # 0..7 of subband b — disjoint sets across boundaries — so all
+    # boundaries vectorize in one shot (bit-identical: same per-element
+    # expressions, reading the original x).
+    nb = n_boundaries
+    lo = x[0:nb, 17:9:-1]  # samples 17..10 of the lower subbands [nb, 8]
+    hi = x[1 : nb + 1, 0:8]
+    y[0:nb, 17:9:-1] = lo * cs - hi * ca
+    y[1 : nb + 1, 0:8] = hi * cs + lo * ca
+    return y
+
+
+def hybrid_synthesis_np(x: np.ndarray, block_type: int, mixed: bool) -> np.ndarray:
+    """[32, 18] spectral -> [32, 36] windowed IMDCT responses (pre-OLA)."""
+    T = hybrid_matrices()
+    if block_type == BLOCK_SHORT:
+        if mixed:
+            out = np.einsum("ij,sj->si", T[BLOCK_SHORT], x).astype(np.float32)
+            out[:2] = np.einsum("ij,sj->si", T[BLOCK_LONG], x[:2])
+            return out
+        return np.einsum("ij,sj->si", T[BLOCK_SHORT], x).astype(np.float32)
+    return np.einsum("ij,sj->si", T[block_type], x).astype(np.float32)
+
+
+def polyphase_response_np(hybrid_out: np.ndarray) -> np.ndarray:
+    """[32 sb, T t] time-domain subband samples -> [32*T + 480] response.
+
+    Computes this granule's full contribution to the PCM stream via the
+    matrixing matmul + windowed FIR taps; the 480-sample tail belongs to
+    following granules (superposition form of synthesis.rs:158-348).
+    T = 18 for Layer III granules, 12 for Layer I frames, 36 for Layer II.
+    """
+    N = polyphase_matrix()
+    W = synthesis_window()
+    qidx = _synth_sel_idx()
+    S = hybrid_out.T  # [T, 32 sb]
+    T = S.shape[0]
+    V = S @ N.T  # [T, 64]
+    c = (V[:, qidx] * W[None, :, :]).astype(np.float32, copy=False)  # [T, 16, 32]
+    # out[t] = sum_k c[t-k, k] (the 16 overlapping tap groups). A strided
+    # view over a zero-padded copy turns the 16 shifted adds into one
+    # reduction: w[t, k, j] = A[15 + t - k, k, j] = c[t-k, k, j] or 0.
+    A = np.zeros((T + 30, 16, 32), dtype=np.float32)
+    A[15 : 15 + T] = c
+    s0, s1, s2 = A.strides
+    w = np.lib.stride_tricks.as_strided(
+        A[15:], shape=(T + 15, 16, 32), strides=(s0, s1 - s0, s2)
+    )
+    return w.sum(axis=1, dtype=np.float32).reshape(-1)
+
+
+class GranuleDenseState:
+    """Carries cross-granule linear state for the stateful per-packet path:
+    the hybrid overlap tail and the pending polyphase response tail."""
+
+    def __init__(self, hybrid_tail: np.ndarray = None, synth_tail: np.ndarray = None):
+        # Optional caller-owned buffers: the per-packet decoder passes
+        # views into one [C, ...] block shared with the native dense stage,
+        # so both paths mutate the same state. Updates are in-place —
+        # the array identity is stable.
+        self.hybrid_tail = (np.zeros((32, 18), dtype=np.float32)
+                            if hybrid_tail is None else hybrid_tail)
+        self.synth_tail = (np.zeros(480, dtype=np.float32)
+                           if synth_tail is None else synth_tail)
+
+    def reset(self):
+        self.hybrid_tail[:] = 0
+        self.synth_tail[:] = 0
+
+
+def granule_dense_np(
+    x: np.ndarray, block_type: int, mixed: bool, state: GranuleDenseState
+) -> np.ndarray:
+    """Full dense stage for one granule-channel: [576] spectral (reordered,
+    stereo-decoded) -> [576] PCM, updating carried state."""
+    xb = x.reshape(32, 18)
+    n_bounds = 0 if (block_type == BLOCK_SHORT and not mixed) else (
+        1 if block_type == BLOCK_SHORT else 31
+    )
+    xb = antialias_np(xb, n_bounds)
+    tmp = hybrid_synthesis_np(xb, block_type, mixed)  # [32, 36]
+    sb_time = tmp[:, :18] + state.hybrid_tail
+    state.hybrid_tail[:] = tmp[:, 18:]
+    sb_time = sb_time * freq_inversion_mask()
+    resp = polyphase_response_np(sb_time)
+    out = resp[:576].copy()
+    out[:480] += state.synth_tail
+    state.synth_tail[:] = resp[576:]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The port's operators
+# ---------------------------------------------------------------------------
 
 
 def reference_tables() -> Dict[str, np.ndarray]:
-    """The dense stage's constant operators, from the reference builders."""
+    """The dense stage's constant operators, from the builders above."""
     cs, ca = antialias_coeffs()
     return {
         "hybrid": hybrid_matrices(),               # [4, 36, 18]

@@ -1,15 +1,19 @@
-"""Vorbis dense stage: batched IMDCTs grouped by block size.
+"""Vorbis dense stage: batched IMDCTs grouped by block size, and the lap.
 
 PyTorch port of ``symphonia_tpu/ops/vorbis_dense.py``. The packet-channel
 lanes of every stream are grouped by block size n (a power of two from 64
 to 8192), and each group is one product ``[L, n/2] @ [n/2, n]`` with the
 reference's unscaled IMDCT matrix (``imdct_matrix(n)``). The windowed lap
-stitch between packets is the reference's numpy ``lap_stitch``, imported.
+stitch between packets of a stream is the reference's numpy ``lap_stitch``,
+copied here (``symphonia_tpu/ops/vorbis_dense.py:53-81``).
 
-One kernel (``csrc/vorbis_dense.cu``): ``vorbis_imdct`` (V1), the product
-in true fp32. Its wrapper runs the plain PyTorch twin for CPU tensors and
-launches the kernel for CUDA tensors, or raises. The matrices are buffers
-of :class:`VorbisDense`, one per block size, built on first use.
+Two kernels (``csrc/vorbis_dense.cu``): ``vorbis_imdct`` (V1), the product
+in true fp32, and ``vorbis_lap`` (V2), the batched equal-size lap of the
+reference's combined decode step (``__graft_entry__.py:117-121``), which
+:mod:`..entry` runs. Each wrapper runs its plain PyTorch twin for CPU
+tensors and launches its kernel for CUDA tensors, or raises. The matrices
+are buffers of :class:`VorbisDense`, one per block size, built on first
+use.
 """
 
 from __future__ import annotations
@@ -20,9 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from symphonia_tpu.codecs.vorbis import imdct_matrix
-from symphonia_tpu.ops.vorbis_dense import lap_stitch
-
+from ..codecs.vorbis import imdct_matrix, vorbis_window
 from . import _build
 
 # Lanes per device product: a memory bound (n = 8192 takes 48 KB a lane).
@@ -79,6 +81,69 @@ def vorbis_imdct(x, m):
     _build.LAUNCHES["vorbis_imdct"] += 1
     _build.check("vorbis_imdct", err)
     return y
+
+
+def vorbis_lap_plain(t, w):
+    """Twin of V2: ``t [V, n1]`` (consecutive blocks of n1 samples) and the
+    window slope ``w [n1/2]`` -> ``pcm [V, n1/2]``, the reference's
+    ``ov[:, :n1/2] * w[::-1] + t[:, :n1/2] * w`` with ``ov[r] = t[r-1,
+    n1/2:]`` and ``ov[0] = 0``."""
+    h = t.shape[1] // 2
+    ov = torch.cat([t.new_zeros((1, h)), t[:-1, h:]], dim=0)
+    return ov * w.flip(0) + t[:, :h] * w
+
+
+def vorbis_lap(t, w):
+    """V2 wrapper: ``t [V, n1] f32`` and ``w [n1/2]`` -> ``[V, n1/2]``."""
+    V, n1 = t.shape
+    if V == 0:
+        raise ValueError("empty lane batch")
+    if _build.device_type(t) == "cpu":
+        return vorbis_lap_plain(t, w)
+    t = t.contiguous()
+    w = w.contiguous()
+    if (t.dtype != torch.float32 or w.dtype != torch.float32 or n1 % 2
+            or w.shape != (n1 // 2,)):
+        raise ValueError("f32 t [V, n1] with n1 even, w [n1/2]")
+    dev = _build.require_cuda(t, w)
+    pcm = torch.empty((V, n1 // 2), dtype=torch.float32, device=dev)
+    err = _build.lib().vorbis_lap_launch(
+        t.data_ptr(), w.data_ptr(), pcm.data_ptr(), V, n1,
+        _build.stream_ptr(dev))
+    _build.LAUNCHES["vorbis_lap"] += 1
+    _build.check("vorbis_lap", err)
+    return pcm
+
+
+def lap_stitch(
+    imdcts: Sequence[np.ndarray], flags: Sequence[bool], bs0: int, bs1: int
+) -> np.ndarray:
+    """Windowed overlap-add across a packet sequence for one channel
+    (dsp.rs DspChannel::synth semantics). imdcts[p] has length bs of
+    packet p. The first packet produces no output (no left partner)."""
+    w0 = vorbis_window(bs0)
+    w1 = vorbis_window(bs1)
+    outs: List[np.ndarray] = []
+    for p in range(1, len(imdcts)):
+        prev, cur = imdcts[p - 1], imdcts[p]
+        prev_bs, bs = len(prev), len(cur)
+        win = w1 if (prev_bs == bs1 and bs == bs1) else w0
+        ov = prev[prev_bs // 2 :]
+        out = np.empty((prev_bs + bs) // 4, dtype=np.float32)
+        if prev_bs == bs:
+            out[:] = ov[: bs // 2] * win[::-1] + cur[: bs // 2] * win
+        elif prev_bs > bs:  # long -> short
+            start = (bs1 - bs0) // 4
+            end = start + bs0 // 2
+            out[:start] = ov[:start]
+            out[start:] = ov[start:end] * win[::-1] + cur[: bs0 // 2] * win
+        else:  # short -> long
+            start = (bs1 - bs0) // 4
+            end = start + bs0 // 2
+            out[: bs0 // 2] = ov[: bs0 // 2] * win[::-1] + cur[start:end] * win
+            out[bs0 // 2 :] = cur[end : bs1 // 2]
+        outs.append(out)
+    return np.concatenate(outs) if outs else np.zeros(0, np.float32)
 
 
 class VorbisDense(nn.Module):

@@ -9,9 +9,13 @@ import torch
 
 import jax.numpy as jnp
 
-from symphonia_tpu.codecs.flac import lpc_reconstruct, parse_frame
-from symphonia_tpu.core.io import MediaSourceStream
-from symphonia_tpu.formats.flac import FlacReader
+import symphonia_tpu.codecs.flac as ref_codec
+import symphonia_tpu.core.io as ref_io
+import symphonia_tpu.formats.flac as ref_format
+import symphonia_tpu_torch.codecs.flac as port_codec
+import symphonia_tpu_torch.core.io as port_io
+import symphonia_tpu_torch.formats.flac as port_format
+from symphonia_tpu.codecs.flac import lpc_reconstruct
 from symphonia_tpu.ops import flac_dense as ref
 from symphonia_tpu_torch.ops import flac_dense as port
 
@@ -34,14 +38,18 @@ def _port_lpc(res, coefs, order, shift, n, wasted=None):
         wasted=None if wasted is None else _t(wasted)).numpy()
 
 
-def _frames(data):
-    reader = FlacReader(MediaSourceStream(data))
+def _frames(data, of_port: bool):
+    """The parsed frames of ``data``, by the port's host stage or by the
+    reference's: each package packs only its own frames."""
+    fmt, io, codec = ((port_format, port_io, port_codec) if of_port
+                      else (ref_format, ref_io, ref_codec))
+    reader = fmt.FlacReader(io.MediaSourceStream(data))
     frames = []
     while True:
         p = reader.next_packet()
         if p is None:
             return frames
-        frames.append(parse_frame(p.data, reader.stream_info))
+        frames.append(codec.parse_frame(p.data, reader.stream_info))
 
 
 class TestLpcVsReference:
@@ -193,9 +201,9 @@ class TestPipelineVsReference:
             ch = [np.full(1024, 55, np.int64), np.full(1024, -7, np.int64)]
         data = build_flac_file(ch, block_size=256, stereo_mode=mode,
                                kind=kind, **kw)
-        frames = _frames(data)
+        frames = _frames(data, True)
         pk_port = port.pack_parsed_frames(frames)
-        pk_ref = ref.pack_parsed_frames(frames)
+        pk_ref = ref.pack_parsed_frames(_frames(data, False))
         got = port.decode_packed(pk_port, "cpu")
         np.testing.assert_array_equal(got, ref.decode_packed(pk_ref))
         pcm = np.concatenate([got[i, :, : f.header.block_size]
@@ -206,26 +214,27 @@ class TestPipelineVsReference:
         ch = [c << 3 for c in random_walk(512, 13, seed=77)]
         data = build_flac_file(ch, block_size=256, kind="fixed", order=2,
                                wasted=3)
-        frames = _frames(data)
-        got = port.decode_packed(port.pack_parsed_frames(frames), "cpu")
+        got = port.decode_packed(
+            port.pack_parsed_frames(_frames(data, True)), "cpu")
         np.testing.assert_array_equal(
-            got, ref.decode_packed(ref.pack_parsed_frames(frames)))
+            got, ref.decode_packed(ref.pack_parsed_frames(
+                _frames(data, False))))
         np.testing.assert_array_equal(got[:, 0].reshape(-1),
                                       np.asarray(ch[0], np.int32))
 
     @pytest.mark.parametrize("n_max", [None, 1040])
     def test_pack_parsed_frames_equals_reference(self, n_max):
         chans = random_walk(1500, 16, seed=8, ch=2)
-        frames = []
-        for mode, kind, kw in PIPELINE_CASES[:5]:
-            frames += _frames(build_flac_file(
-                [c[:500] for c in chans], block_size=256, stereo_mode=mode,
-                kind=kind, **kw))
-        frames += _frames(build_flac_file([c << 2 for c in random_walk(
+        datas = [build_flac_file(
+            [c[:500] for c in chans], block_size=256, stereo_mode=mode,
+            kind=kind, **kw) for mode, kind, kw in PIPELINE_CASES[:5]]
+        datas.append(build_flac_file([c << 2 for c in random_walk(
             300, 14, seed=9)], block_size=300, kind="fixed", order=1,
             wasted=2))
-        a = port.pack_parsed_frames(frames, n_max=n_max)
-        b = ref.pack_parsed_frames(frames, n_max=n_max)
+        a = port.pack_parsed_frames(
+            [f for d in datas for f in _frames(d, True)], n_max=n_max)
+        b = ref.pack_parsed_frames(
+            [f for d in datas for f in _frames(d, False)], n_max=n_max)
         assert a.keys() == b.keys()
         for k in a:
             if isinstance(b[k], np.ndarray):

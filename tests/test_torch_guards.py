@@ -1,6 +1,7 @@
 """Guards of the PyTorch port: it never imports JAX, never picks a device
 or falls back to the CPU on its own, and refuses what it has not ported."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -11,38 +12,76 @@ import pytest
 import torch
 
 from symphonia_tpu_torch import batch as port
+from symphonia_tpu_torch import entry
 from symphonia_tpu_torch.ops import _build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_port_never_imports_jax():
-    # A fresh interpreter: this process has JAX already (conftest.py).
-    code = textwrap.dedent("""
-        import sys
-        sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+_REFUSE = """
+import sys
+
+
+class Refuse:
+    \"\"\"Refuses the reference package and JAX, however they are asked for.\"\"\"
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("symphonia_tpu", "jax", "jaxlib"):
+            raise ImportError("refused: " + name)
+
+
+sys.meta_path.insert(0, Refuse())
+"""
+
+
+def _five_codec_inputs(tmp_path):
+    """FLAC, MP3, AAC, Ogg Vorbis and Layer II streams, built here (the
+    repository's encoders import the reference package) and written to
+    ``tmp_path`` for a fresh interpreter."""
+    import importlib.util
+    import pathlib
+
+    from aac_builder import build_adts, build_raw_block
+    from flac_builder import build_flac_file
+    from mp3_builder import build_mpeg1_l3_stream
+    from test_layer12 import _rand_l2_frame
+
+    steps = np.random.default_rng(1).integers(-60, 61, size=(2, 1024))
+    ch = np.clip(np.cumsum(steps, axis=1), -32767, 32767)
+    q = np.zeros(1024, np.int64)
+    q[:8] = [100, -500, 17, -16, 2000, -8000, 15, 1]
+    pg = importlib.util.find_spec("pygame").submodule_search_locations[0]
+    streams = {
+        "flac": build_flac_file(list(ch), block_size=256,
+                                stereo_mode="mid_side", kind="fixed",
+                                order=2),
+        "mp3": build_mpeg1_l3_stream(3, n_ch=2, seed=1),
+        "aac": build_adts([build_raw_block([q, -q], [s, s], 12, 140, 44100)
+                           for s in (0, 1, 2, 3)], 44100, 2),
+        "ogg": (pathlib.Path(pg) / "examples/data/house_lo.ogg").read_bytes(),
+        "mp2": b"".join(_rand_l2_frame(s, n_ch=2)[0] for s in range(3)),
+    }
+    for name, data in streams.items():
+        (tmp_path / name).write_bytes(data)
+    np.save(tmp_path / "flac.npy", ch)
+
+
+def test_port_never_imports_jax(tmp_path):
+    # A fresh interpreter that refuses the reference package and JAX (this
+    # process has both): the five-codec decode_many and the combined decode
+    # step run, and neither package is loaded afterwards.
+    _five_codec_inputs(tmp_path)
+    code = _REFUSE + textwrap.dedent("""
+        import pathlib
+        sys.path.insert(0, sys.argv[1])
         import numpy as np
-        import symphonia_tpu_torch
-        from symphonia_tpu_torch import batch
-        from aac_builder import build_adts, build_raw_block
-        from flac_builder import build_flac_file
-        from mp3_builder import build_mpeg1_l3_stream
-        from test_layer12 import _rand_l2_frame
-        import importlib.util, pathlib
-        pg = importlib.util.find_spec("pygame").submodule_search_locations[0]
-        ogg = (pathlib.Path(pg) / "examples/data/house_lo.ogg").read_bytes()
-        mp2 = b"".join(_rand_l2_frame(s, n_ch=2)[0] for s in range(3))
-        steps = np.random.default_rng(1).integers(-60, 61, size=(2, 1024))
-        ch = list(np.clip(np.cumsum(steps, axis=1), -32767, 32767))
-        flac = build_flac_file(ch, block_size=256, stereo_mode="mid_side",
-                               kind="fixed", order=2)
-        mp3 = build_mpeg1_l3_stream(3, n_ch=2, seed=1)
-        q = np.zeros(1024, np.int64)
-        q[:8] = [100, -500, 17, -16, 2000, -8000, 15, 1]
-        aac = build_adts([build_raw_block([q, -q], [s, s], 12, 140, 44100)
-                          for s in (0, 1, 2, 3)], 44100, 2)
-        out = batch.decode_many([flac, mp3, aac, ogg, mp2], device="cpu",
-                                verify=True)
+        import torch
+        from symphonia_tpu_torch import batch, entry
+        d = pathlib.Path(sys.argv[2])
+        names = ["flac", "mp3", "aac", "ogg", "mp2"]
+        out = batch.decode_many([(d / n).read_bytes() for n in names],
+                                device="cpu", verify=True)
+        ch = np.load(d / "flac.npy")
         assert out[0].md5_ok is True and (out[0].samples == ch).all()
         assert out[1].samples.shape[0] == 2
         assert np.isfinite(out[1].samples).all()
@@ -52,29 +91,57 @@ def test_port_never_imports_jax():
         assert out[4].samples.shape == (2, 3 * 1152)
         assert np.isfinite(out[4].samples).all() and out[4].samples.any()
         assert batch.host_routes == 0
-        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+        fn, args = entry.entry(device="cpu")
+        flac, mp3, aac, vorb = fn(*args)
+        assert flac.shape == (8, 2, 256) and mp3.shape == (8, 2, 576)
+        assert aac.shape == (8, 1024) and vorb.shape == (8, 256)
+        assert all(torch.isfinite(o).all() for o in (mp3, aac, vorb))
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("symphonia_tpu", "jax", "jaxlib")]
         assert not bad, bad
         print("ok")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code, ROOT],
+    proc = subprocess.run([sys.executable, "-c", code, ROOT, str(tmp_path)],
                           capture_output=True, text=True, timeout=120,
-                          env=env, cwd=ROOT)
+                          env=env, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
 
 
+def _imported_modules(path):
+    """Every module an AST import names, plus the string arguments of
+    ``__import__`` and ``importlib.import_module`` calls."""
+    names = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("__import__", "import_module")):
+            names.append(node.args[0].value)
+    return names
+
+
 def test_port_sources_import_no_jax():
+    # Neither the package nor chip_smoke.py imports the reference package
+    # or JAX, by any import statement or call.
     pkg = os.path.join(ROOT, "symphonia_tpu_torch")
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, dirs, files in os.walk(pkg):
         if "_build" in dirs:
             dirs.remove("_build")  # build outputs, not package sources
-        for f in files:
-            if f.endswith(".py"):
-                src = open(os.path.join(dirpath, f)).read()
-                assert "import jax" not in src and "from jax" not in src, f
-    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    assert "import jax" not in src and "from jax" not in src
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    assert len(paths) > 60
+    for path in paths:
+        for name in _imported_modules(path):
+            assert name.split(".")[0] not in ("symphonia_tpu", "jax",
+                                              "jaxlib"), (path, name)
 
 
 @pytest.mark.parametrize("make", [
@@ -83,6 +150,8 @@ def test_port_sources_import_no_jax():
     lambda: port.AacBatchDecoder(device="cuda"),
     lambda: port.VorbisBatchDecoder(device="cuda"),
     lambda: port.decode_bytes(b"", device="cuda"),
+    lambda: entry.entry(),
+    lambda: entry.entry(device="cuda"),
 ])
 def test_cuda_without_cuda_raises(make):
     if torch.cuda.is_available():
@@ -177,6 +246,15 @@ def test_build_hash_follows_sources():
                                       "simt_gemm.cuh"}
     assert _build._source_hash(srcs) == _build._source_hash(srcs)
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("kernel", _build.KERNELS)
+def test_every_kernel_has_a_c_entry_point(kernel):
+    # V2 vorbis_lap among them: a counted launch and a declared signature.
+    assert len(_build.KERNELS) == 10 and "vorbis_lap" in _build.KERNELS
+    assert f"{kernel}_launch" in _build._SIGNATURES
+    assert any(f"{kernel}_launch(" in s.read_text()
+               for s in _build._sources() if s.suffix == ".cu")
 
 
 def test_launch_errors_raise():
