@@ -7,27 +7,43 @@ Phases (one line each; any failure raises and exits non-zero):
   1. environment: CUDA card, native host library, nvcc build of csrc/*.cu;
   2. each kernel (F1 flac_lpc, F2 flac_decorrelate, M1 mp3_hybrid,
      M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola, V1
-     vorbis_imdct, L1 mpa_l12_synth) against its plain PyTorch twin on the
-     card at the main path's shapes, with CUDA-event times for both; the
-     MP3 dense stage against the reference's numpy oracle on a small input,
-     and chained over two calls against one call; A2 bit for bit against
-     ``native.aac_dequant_host``, A3 against the reference's sequential
-     ``window_ola_chain``; V1 at both ends of the Vorbis block sizes (64 and
-     8192); L1 for Layer I and II, chained over calls (Layer I chunks of 1
-     and 2 frames included) against one call, and against the reference's
-     numpy polyphase; V2 vorbis_lap bit for bit at [16384, 2048] and
-     [4096, 64]; beside each kernel's time, the least time the card could
-     take for its work (``bound_ms``) and, where one PyTorch call computes
-     the same function, that call's time (``library_ms``);
+     vorbis_imdct, L1 mpa_l12_synth, V2 vorbis_lap, P1 pcm_unpack) against
+     its plain PyTorch twin on the card at the main path's shapes, with
+     CUDA-event times for both; the MP3 dense stage against the reference's
+     numpy oracle on a small input, and chained over two calls against one
+     call; A2 bit for bit against ``native.aac_dequant_host``, A3 against
+     the reference's sequential ``window_ola_chain``; V1 at both ends of the
+     Vorbis block sizes (64 and 8192); L1 for Layer I and II, chained over
+     calls (Layer I chunks of 1 and 2 frames included) against one call,
+     and against the reference's numpy polyphase; V2 vorbis_lap bit for bit
+     at [16384, 2048] and [4096, 64]; P1 bit for bit at [16384, 16384] for
+     each of its 18 codecs; beside each kernel's time, the least time the
+     card could take for its work (``bound_ms``) and, where one PyTorch
+     call computes the same function, that call's time (``library_ms``);
   3. the slice: ``symphonia_tpu_torch.batch.decode_many`` on a mixed
      FLAC + MP3 Layer III + AAC-LC + Ogg Vorbis + MPEG Layer I/II batch
-     built from a fixed seed with the repo's test encoders, on
-     ``device="cuda"``: FLAC bit-exact to the source with STREAMINFO MD5
-     verified, MP3, AAC, Vorbis and Layer I/II against the port's CPU-twin
-     path, no host route, every kernel of the path launched, V1 for each of
-     the four Vorbis block sizes and L1 for Layer I and II (A2 is not on the
-     decode path, as in the reference, and is checked in phase 2 only);
-  4. the entry step: ``symphonia_tpu_torch.entry.decode_step`` (the
+     with per-packet entries (PCM in WAV, AIFF, CAF and MP4, IMA and MS
+     ADPCM, ALAC in CAF, FLAC in Matroska), built from a fixed seed with the
+     repo's test encoders, on the card by default: FLAC bit-exact to the
+     source with STREAMINFO MD5 verified, MP3, AAC, Vorbis and Layer I/II
+     against the port's CPU-twin path, the lossless per-packet entries bit
+     for bit against their sources and ADPCM within 1% of its source's
+     RMS, no host route, ``packet_routes`` equal to the per-packet
+     entries, every kernel of the path launched, V1 for each of the four
+     Vorbis block sizes and L1 for Layer I and II (A2 is not on the decode
+     path, as in the reference, and is checked in phase 2 only);
+  4. ``pcm_batch``, P1's path: the PCM entries of phase 3 demuxed with the
+     port's readers, each codec's packets padded into one [B, max_bytes]
+     uint8 batch and unpacked by ``ops.pcm.decode_pcm_batch`` on the card,
+     then de-interleaved and trimmed per packet: bit for bit against
+     ``decode_pcm_np`` packet by packet, against the twin, and against the
+     sources;
+  5. ``rice_bench``, R1's path: ``symphonia_tpu_torch.tools.
+     bench_rice_device.main()`` at its defaults (8192 lanes of 4096
+     symbols, k = 4), then R1 at that shape bit for bit against its twin on
+     the card (residuals and end cursors), the encoded values and the
+     reference's scalar oracle on a few lanes;
+  6. the entry step: ``symphonia_tpu_torch.entry.decode_step`` (the
      reference's combined four-codec step, K14) on the card at full width
      (8192 FLAC frames of 4096 samples, 4096 stereo MP3 granules, 16384 AAC
      frames, 16384 Vorbis blocks of 2048) against ``decode_step_plain`` on
@@ -35,8 +51,9 @@ Phases (one line each; any failure raises and exits non-zero):
      M1, M2, A1, A3, V1 and V2 launched; then a small step with EIGHT_SHORT
      handoff lanes, which takes A2.
 Launch counts are read per path (each run from counts of 0): every kernel
-of a path must launch on it. The line before the last is a JSON object of
-per-kernel results; the last is ``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
+of a path must launch on it, and every kernel on some path. The line
+before the last is a JSON object of per-kernel results; the last is
+``{"ok": true, "device": {...}}``. Exits non-zero and prints no result
 without a CUDA card or outside a checkout of the repository.
 """
 
@@ -89,6 +106,23 @@ VORBIS_SPECS = [(44100, 8, 11, s) for s in range(6)] + [(48000, 9, 12, 6)]
 # II (1152 at 22.05 kHz).
 MPA_L12_SPECS = ([("l2", 1149, s) for s in range(4)]
                  + [("l1", 3445, 4), ("l1", 3445, 5), ("l2_lsf", 574, 6)])
+# The per-packet entries (kind, seed): PACKET_SECONDS each, 44.1 kHz stereo
+# for PCM in WAV (16-, 24-, 8-, 32-bit and float), AIFF (16-bit big
+# endian), CAF (16-bit) and MP4 (QuickTime ``sowt``); 22.05 kHz mono IMA
+# and MS ADPCM in WAV; 44.1 kHz mono ALAC in CAF; 44.1 kHz stereo FLAC in
+# Matroska (FLAC_SECONDS); CAF_SECONDS of CAF.
+PACKET_SECONDS = 30
+# The CAF reader gives one packet a frame, as the reference's does: 1 s.
+CAF_SECONDS = 1
+PACKET_SPECS = [("wav_s16", 0), ("wav_s16", 1), ("wav_s24", 2),
+                ("wav_u8", 3), ("wav_s32", 4), ("wav_f32", 5),
+                ("aiff_s16be", 6), ("caf_lpcm", 7), ("ima_adpcm", 8),
+                ("ms_adpcm", 9), ("alac_caf", 10), ("flac_mkv", 11),
+                ("pcm_mp4", 12)]
+LOSSY_PACKET = ("ima_adpcm", "ms_adpcm")
+# P1's full width ([B, N] bytes) and R1's (the bench tool's defaults).
+PCM_SIZE = (16384, 16384)
+RICE_SIZE = dict(B=8192, n=4096, k=4)
 
 # Kernel -> (route, source, the TPU program it replaces)
 KERNEL_INFO = {
@@ -115,15 +149,21 @@ KERNEL_INFO = {
     # 117-121 of the program at :62).
     "vorbis_lap": ("cuda", "symphonia_tpu_torch/csrc/vorbis_dense.cu",
                    "__graft_entry__.py:62"),
+    # P1 replaces K12 (decode_pcm_batch_jax and its _combine_bytes_int,
+    # :174); R1 replaces K13.
+    "pcm_unpack": ("cuda", "symphonia_tpu_torch/csrc/pcm.cu",
+                   "symphonia_tpu/ops/pcm.py:197"),
+    "rice_decode": ("cuda", "symphonia_tpu_torch/csrc/rice_device.cu",
+                    "symphonia_tpu/ops/rice_device.py:40"),
 }
 # Kernels that decode_many does not run (K9 serves only dequant_select and
-# its tests; V2 is the entry step's lap): checked in phase 2, not required
-# in phase 3.
-OFF_PATH = ("aac_dequant", "vorbis_lap")
-# The entry step's kernels (phase 4); A2 runs only for short handoff lanes.
+# its tests; V2 is the entry step's lap; P1 and R1 have their own paths, as
+# in the reference): not required in phase 3.
+OFF_PATH = ("aac_dequant", "vorbis_lap", "pcm_unpack", "rice_decode")
+# The entry step's kernels (phase 6); A2 runs only for short handoff lanes.
 STEP_PATH = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
              "aac_imdct", "aac_ola", "vorbis_imdct", "vorbis_lap")
-# Phase 4's full width: FLAC frames, samples, MP3 granules, AAC frames,
+# Phase 6's full width: FLAC frames, samples, MP3 granules, AAC frames,
 # Vorbis blocks and block size.
 STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
 
@@ -302,6 +342,113 @@ def build_mpa_l12(kind: str, frames: int, seed: int) -> bytes:
     return b"".join(out)
 
 
+def _alac_caf(chans, frame_len: int, rate: int) -> bytes:
+    """Mono ALAC (order-2 compressed frames) in CAF: desc, kuki, pakt and
+    data chunks, as ``tests/test_golden_pcm.py``'s ALAC entry is built."""
+    import struct
+
+    from symphonia_tpu_torch.testing.alac_builder import (
+        build_cookie, encode_frame_compressed)
+
+    cookie = dict(frame_length=frame_len, bit_depth=16, pb=40, mb=10, kb=14)
+    n = len(chans[0])
+    frames = [encode_frame_compressed([chans[0][i : i + frame_len]], cookie,
+                                      order=2)
+              for i in range(0, n, frame_len)]
+    desc = struct.pack(">d", float(rate)) + b"alac" + struct.pack(
+        ">IIIII", 0, 0, frame_len, 1, 16)
+    pakt = struct.pack(">qqii", len(frames), n, 0, 0)
+    for f in frames:
+        size, varint = len(f), bytearray()
+        while True:
+            varint.insert(0, size & 0x7F)
+            size >>= 7
+            if not size:
+                break
+        for i in range(len(varint) - 1):
+            varint[i] |= 0x80
+        pakt += bytes(varint)
+    cookie_bytes = build_cookie(frame_len, 16, 1, rate)
+    payload = b"".join(frames)
+    return (b"caff" + struct.pack(">HH", 1, 0)
+            + b"desc" + struct.pack(">q", len(desc)) + desc
+            + b"kuki" + struct.pack(">q", len(cookie_bytes)) + cookie_bytes
+            + b"pakt" + struct.pack(">q", len(pakt)) + pakt
+            + b"data" + struct.pack(">q", len(payload) + 4)
+            + struct.pack(">I", 0) + payload)
+
+
+def _flac_mkv(chans, rate: int) -> bytes:
+    """FLAC frames (fixed order 2, mid/side, blocks of 4096) in Matroska,
+    one SimpleBlock a frame, a cluster every 64 frames."""
+    _paths()
+    from symphonia_tpu_torch.core.io import MediaSourceStream
+    from symphonia_tpu_torch.formats.flac import FlacReader
+    from symphonia_tpu_torch.testing.flac_builder import build_flac_file
+    from symphonia_tpu_torch.testing.mkv_builder import build_mkv, simple_block
+
+    flac = build_flac_file(chans, sample_rate=rate, bps=16, block_size=4096,
+                           stereo_mode="mid_side", kind="fixed", order=2)
+    reader = FlacReader(MediaSourceStream(flac))
+    frames = []
+    while (pkt := reader.next_packet()) is not None:
+        frames.append(bytes(pkt.data))
+    ms = [int(i * 4096 * 1000 / rate) for i in range(len(frames))]
+    clusters = [(ms[i], [simple_block(1, ms[j] - ms[i], [frames[j]])
+                         for j in range(i, min(i + 64, len(frames)))])
+                for i in range(0, len(frames), 64)]
+    return build_mkv("A_FLAC", flac[:42], clusters, rate=rate,
+                     ch=len(chans), bit_depth=16)
+
+
+def build_packet(kind: str, seed: int):
+    """One per-packet entry of phase 3 -> (bytes, planar source samples)."""
+    _paths()
+    from symphonia_tpu_torch.testing import (adpcm_builder, aiff_caf_builder,
+                                             mp4_builder, wav_builder)
+    from symphonia_tpu_torch.testing.flac_builder import random_walk
+
+    rng = np.random.default_rng(SEED + 500 + seed)
+    n = SR * PACKET_SECONDS
+    if kind in LOSSY_PACKET:
+        rate = SR // 2
+        sig = np.clip(np.cumsum(rng.integers(-400, 401, size=rate
+                                             * PACKET_SECONDS)),
+                      -30000, 30000).astype(np.int32)
+        if kind == "ima_adpcm":
+            payload, align = adpcm_builder.ima_encode(sig)
+            data = adpcm_builder.make_adpcm_wav(payload, 0x11, align, 505,
+                                                len(sig), rate=rate)
+        else:
+            payload, align = adpcm_builder.ms_encode(sig)
+            data = adpcm_builder.make_adpcm_wav(payload, 0x02, align, 500,
+                                                len(sig), rate=rate)
+        return data, sig[None]
+    if kind == "alac_caf":
+        chans = random_walk(n, 16, seed=SEED + seed, ch=1)
+        return _alac_caf(chans, 4096, SR), np.stack(chans)
+    if kind == "flac_mkv":
+        chans = random_walk(SR * FLAC_SECONDS, 16, seed=SEED + seed, ch=2)
+        return _flac_mkv(chans, SR), np.stack(chans)
+    if kind == "wav_f32":
+        frames = (rng.standard_normal((n, 2)) * 0.3).astype(np.float32)
+        return wav_builder.make_wav(frames, rate=SR, fmt_tag=3), frames.T
+    bits = {"wav_s24": 24, "wav_u8": 8, "wav_s32": 32}.get(kind, 16)
+    frames = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), size=(n, 2))
+    if kind.startswith("wav"):
+        data = wav_builder.make_wav(frames, rate=SR, bits=bits)
+    elif kind == "aiff_s16be":
+        data = aiff_caf_builder.make_aiff(frames, rate=SR)
+    elif kind == "caf_lpcm":
+        frames = frames[: SR * CAF_SECONDS]
+        data = aiff_caf_builder.make_caf(frames, rate=SR)
+    else:  # pcm_mp4
+        data = mp4_builder.build_pcm_m4a(frames.T.astype(np.int16),
+                                         fourcc=b"sowt", rate=SR,
+                                         frames_per_chunk=4096)
+    return data, frames.T
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -382,6 +529,14 @@ def work_mpa_l12_synth(F: int, C: int, T: int):
 
 def work_vorbis_lap(V: int, n1: int):
     return V * n1 * 4 + n1 // 2 * 4 + V * n1 // 2 * 4, 0.0
+
+
+def work_pcm_unpack(B: int, N: int, bps: int):
+    return B * N + 4 * B * (N // bps), 0.0
+
+
+def work_rice_decode(W: int, B: int, n: int):
+    return W * 4 + B * (8 + 4) + B * n * 4 + B * 8, 0.0
 
 
 def phase_env() -> dict:
@@ -554,6 +709,13 @@ def _rounded(out: dict) -> dict:
             for k, v in out.items()}
 
 
+def _by_case(times: dict) -> dict:
+    """Per-case ms (kernel, plain twin, library call or None, bound),
+    rounded for printing."""
+    return {k: [None if v is None else round(v, 4) for v in vals]
+            for k, vals in times.items()}
+
+
 def _bits_equal(a, b) -> bool:
     """Bit for bit (signs of zero included); both float32 of one shape."""
     import torch
@@ -618,19 +780,22 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         if err > bar:
             raise AssertionError(f"aac_imdct {case}: {err} > {bar}")
         errs[f"aac_imdct_{case}"] = err
-        a1_ms[case] = (cuda_ms(lambda: ad.aac_imdct(*args), 10),
-                       cuda_ms(lambda: ad.aac_imdct_plain(*args), 10))
-    # The library call: cuBLAS fp32 on the bare product (no dequant).
-    m_long_t = dense.imdct_long.t()
+        # The library call: cuBLAS fp32 on the bare product (no dequant).
+        m_t = args[1].t()
+        a1_ms[case] = (
+            cuda_ms(lambda: ad.aac_imdct(*args), 10),
+            cuda_ms(lambda: ad.aac_imdct_plain(*args), 10),
+            cuda_ms(lambda: torch.matmul(args[0], m_t), 10),
+            bound(*work_aac_imdct(*args[0].shape,
+                                  case == "long_prologue"))["bound_ms"])
     out["aac_imdct"] = dict(
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("aac_imdct")),
         shape=[L, 1024], ms=a1_ms["long_prologue"][0],
         plain_ms=a1_ms["long_prologue"][1],
-        library_ms=cuda_ms(lambda: torch.matmul(x, m_long_t), 10),
+        library_ms=a1_ms["long_prologue"][2],
         **bound(*work_aac_imdct(L, 1024, True)),
-        ms_by_case={k: [round(a, 4), round(b, 4)] for k, (a, b) in
-                  a1_ms.items()})
+        ms_by_case=_by_case(a1_ms))
 
     # A2: bit for bit with its twin and with the host twin of the device
     # dequantization (native.aac_dequant_host).
@@ -731,9 +896,12 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         if err > bar:
             raise AssertionError(f"vorbis_imdct n={n}: {err} > {bar}")
         errs[f"vorbis_imdct_{n}"] = err
+        case_t = m.t()
         v1_ms[f"{lanes}x{n // 2}->{n}"] = (
             cuda_ms(lambda: vd.vorbis_imdct(x, m), 10),
-            cuda_ms(lambda: vd.vorbis_imdct_plain(x, m), 10))
+            cuda_ms(lambda: vd.vorbis_imdct_plain(x, m), 10),
+            cuda_ms(lambda: torch.matmul(x, case_t), 10),
+            bound(*work_vorbis_imdct(lanes, n))["bound_ms"])
     main = f"{L}x1024->2048"
     x = torch.from_numpy((rng.standard_normal((L, 1024)) * 100.0)
                          .astype(np.float32)).to(dev)
@@ -744,8 +912,7 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         shape=[L, 1024], ms=v1_ms[main][0], plain_ms=v1_ms[main][1],
         library_ms=cuda_ms(lambda: torch.matmul(x, m_t), 10),
         **bound(*work_vorbis_imdct(L, 2048)),
-        ms_by_case={k: [round(a, 4), round(b, 4)]
-                    for k, (a, b) in v1_ms.items()})
+        ms_by_case=_by_case(v1_ms))
 
     # L1 at F frames of C = 2 channels, subband samples at x0.1 with a
     # carried tail; bar 2e-5 (the reference's).
@@ -788,18 +955,17 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         if e_np > 2e-5:
             raise AssertionError(f"mpa_l12_synth T={T} vs numpy: {e_np}")
         errs[f"mpa_l12_synth_{T}_vs_numpy"] = e_np
+        sb2, poly_t = sb.reshape(F * C, 32 * T), poly.t()
         l1_ms[f"T{T}"] = (cuda_ms(lambda: md.mpa_l12_synth(sb, poly, t0), 20),
                           cuda_ms(lambda: md.l12_synth_plain(sb, poly, t0),
-                                  20))
-        if T == 36:
-            sb2, poly_t = sb.reshape(F * C, 32 * T), poly.t()
-            l1_lib = cuda_ms(lambda: torch.matmul(sb2, poly_t), 20)
+                                  20),
+                          cuda_ms(lambda: torch.matmul(sb2, poly_t), 20),
+                          bound(*work_mpa_l12_synth(F, C, T))["bound_ms"])
     out["mpa_l12_synth"] = dict(
         max_abs_err=max(errs[f"mpa_l12_synth_{T}"] for T in (12, 36)),
         shape=[F, C, 32, 36], ms=l1_ms["T36"][0], plain_ms=l1_ms["T36"][1],
-        library_ms=l1_lib, **bound(*work_mpa_l12_synth(F, C, 36)),
-        ms_by_case={k: [round(a, 4), round(b, 4)]
-                    for k, (a, b) in l1_ms.items()})
+        library_ms=l1_ms["T36"][2], **bound(*work_mpa_l12_synth(F, C, 36)),
+        ms_by_case=_by_case(l1_ms))
 
     # V2 on V1's output scale: bit for bit with its twin (each product and
     # the sum rounded once, in the reference's order), at the entry step's
@@ -816,28 +982,82 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
             raise AssertionError(f"vorbis_lap [{V}, {n1}] differs from its "
                                  f"twin: {float((got - ref).abs().max())}")
         v2_ms[f"{V}x{n1}"] = (cuda_ms(lambda: vd.vorbis_lap(tt, w), 20),
-                              cuda_ms(lambda: vd.vorbis_lap_plain(tt, w), 20))
+                              cuda_ms(lambda: vd.vorbis_lap_plain(tt, w), 20),
+                              None, bound(*work_vorbis_lap(V, n1))["bound_ms"])
     main = f"{L}x2048"
     out["vorbis_lap"] = dict(
         max_abs_err=0.0, shape=[L, 2048], ms=v2_ms[main][0],
         plain_ms=v2_ms[main][1], library_ms=None,
         **bound(*work_vorbis_lap(L, 2048)),
-        ms_by_case={k: [round(a, 4), round(b, 4)]
-                    for k, (a, b) in v2_ms.items()})
+        ms_by_case=_by_case(v2_ms))
     print("phase 2 vorbis and layer I/II kernels vs twins:", json.dumps(
         {**_rounded(out),
          **errs}), flush=True)
     return out
 
 
+def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
+    """P1 against its twin on the card at [B, N] random bytes for each of
+    its 18 codecs, bit for bit (float32 compared as int32 bits: random
+    bytes hold NaNs). N = 16384 leaves a trailing byte for 24-bit codecs.
+    The library call (one PyTorch call computing the same function) exists
+    for s16le, s32le and f32le: a reinterpreting view and a copy."""
+    import torch
+
+    from symphonia_tpu_torch.ops import pcm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    x = torch.randint(0, 256, (B, N), dtype=torch.uint8, device=dev,
+                      generator=g)
+    library = {
+        "pcm_s16le": lambda: x.view(torch.int16).to(torch.int32),
+        "pcm_s32le": lambda: x.view(torch.int32).clone(),
+        "pcm_f32le": lambda: x.view(torch.float32).clone(),
+    }
+    by_codec = {}
+    for codec, (bps, _, _) in pcm.DEVICE_CODECS.items():
+        got = pcm.decode_pcm_batch(x, codec)
+        ref = pcm.decode_pcm_batch_plain(x, codec)
+        torch.cuda.synchronize()
+        if got.shape != (B, N // bps) or got.dtype != ref.dtype or not (
+                torch.equal(got.view(torch.int32), ref.view(torch.int32))):
+            raise AssertionError(f"pcm_unpack {codec} differs from its twin")
+        if codec in library and not torch.equal(
+                got.view(torch.int32), library[codec]().view(torch.int32)):
+            raise AssertionError(f"pcm_unpack {codec} differs from the "
+                                 "library call")
+        del got, ref
+        by_codec[codec] = dict(
+            ms=cuda_ms(lambda: pcm.decode_pcm_batch(x, codec), 20),
+            plain_ms=cuda_ms(lambda: pcm.decode_pcm_batch_plain(x, codec), 3),
+            library_ms=(cuda_ms(library[codec], 20) if codec in library
+                        else None),
+            **bound(*work_pcm_unpack(B, N, bps)))
+    main = by_codec["pcm_s16le"]
+    out = {"pcm_unpack": dict(
+        max_abs_err=0, shape=[B, N], ms=main["ms"], plain_ms=main["plain_ms"],
+        library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"],
+        ms_by_case=_by_case({c: [v["ms"], v["plain_ms"], v["library_ms"],
+                                 v["bound_ms"]]
+                             for c, v in by_codec.items()}))}
+    print("phase 2 pcm_unpack vs twin (ms: kernel, plain, library, bound):",
+          json.dumps(_rounded(out)), flush=True)
+    return out
+
+
 def build_inputs():
-    """FLAC, MP3, AAC, Vorbis and Layer I/II streams from the fixed seed,
-    built in worker processes (the slowest first)."""
+    """FLAC, MP3, AAC, Vorbis, Layer I/II and per-packet streams from the
+    fixed seed, built in worker processes (the slowest first)."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
                              mp_context=ctx) as pool:
         flac_f = [pool.submit(build_flac, i) for i in range(len(FLAC_SPECS))]
+        packet_f = [pool.submit(build_packet, kind, seed)
+                    for kind, seed in PACKET_SPECS]
         l12_f = [pool.submit(build_mpa_l12, kind, n, SEED + 400 + s)
                  for kind, n, s in MPA_L12_SPECS]
         vorbis_f = [pool.submit(build_vorbis, rate, e0, e1, VORBIS_SECONDS,
@@ -850,7 +1070,9 @@ def build_inputs():
         vorbis = [f.result() for f in vorbis_f]
         aacs = [f.result() for f in aac_f]
         mp3s = [f.result() for f in mp3_f]
-    return flacs, mp3s, aacs, vorbis, l12s, time.perf_counter() - t0
+        packets = [f.result() for f in packet_f]
+    return (flacs, mp3s, aacs, vorbis, l12s, packets,
+            time.perf_counter() - t0)
 
 
 def _spy(cls, name: str, seen: set, key):
@@ -866,7 +1088,7 @@ def _spy(cls, name: str, seen: set, key):
     return real
 
 
-def phase_slice() -> dict:
+def phase_slice(inputs) -> dict:
     import torch
 
     from symphonia_tpu_torch import batch
@@ -874,7 +1096,7 @@ def phase_slice() -> dict:
     from symphonia_tpu_torch.ops.mp3_dense import L12Dense
     from symphonia_tpu_torch.ops.vorbis_dense import VorbisDense
 
-    flacs, mp3s, aacs, vorbis, l12s, build_s = build_inputs()
+    flacs, mp3s, aacs, vorbis, l12s, packets, build_s = inputs
     # The batch: FLAC entries cycle over the distinct streams, the other
     # codecs' streams interleave, so input order is exercised across codecs.
     items = [("flac", i % len(flacs)) for i in range(N_FLAC_ENTRIES)]
@@ -886,8 +1108,10 @@ def phase_slice() -> dict:
         items.insert(5 * j + 3, ("vorbis", j))
     for j in range(len(l12s)):
         items.insert(9 * j + 4, ("l12", j))
+    for j in range(len(packets)):
+        items.insert(8 * j + 5, ("packet", j))
     src = {"flac": [f[0] for f in flacs], "mp3": mp3s, "aac": aacs,
-           "vorbis": vorbis, "l12": l12s}
+           "vorbis": vorbis, "l12": l12s, "packet": [p[0] for p in packets]}
     datas = [src[kind][i] for kind, i in items]
     audio_s = 0.0
 
@@ -898,20 +1122,24 @@ def phase_slice() -> dict:
                     lambda _, sb, *a: sb.shape[3])
     try:
         torch.cuda.synchronize()
-        batch.host_routes = 0
+        batch.host_routes = batch.packet_routes = 0
         _build.reset_launches()
         t0 = time.perf_counter()
-        outs = batch.decode_many(datas, device="cuda", verify=True)
+        outs = batch.decode_many(datas, verify=True)  # the card, by default
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         routes = batch.host_routes
+        packet_routes = batch.packet_routes
     finally:
         VorbisDense.imdct = real_imdct
         L12Dense.forward = real_l12
 
     if routes != 0:
         raise AssertionError(f"host_routes == {routes}")
+    if packet_routes != len(packets):
+        raise AssertionError(f"packet_routes == {packet_routes} for "
+                             f"{len(packets)} per-packet entries")
     if any(v <= 0 for k, v in launches.items() if k not in OFF_PATH):
         raise AssertionError(f"a kernel of the path was not launched: "
                              f"{launches}")
@@ -921,6 +1149,7 @@ def phase_slice() -> dict:
     if sizes != {256, 2048, 512, 4096} or widths != {12, 36}:
         raise AssertionError(f"V1 block sizes {sizes}, L1 widths {widths}")
     mp3_outs, aac_outs, vorbis_outs, l12_outs = [], [], [], []
+    packet_errs = {}
     for (kind, i), out in zip(items, outs):
         audio_s += out.samples.shape[1] / out.sample_rate
         if kind == "flac":
@@ -929,6 +1158,10 @@ def phase_slice() -> dict:
                 raise AssertionError(f"flac entry {i}: md5_ok={out.md5_ok}")
             if not np.array_equal(out.samples.astype(np.int64), src):
                 raise AssertionError(f"flac entry {i} differs from source")
+        elif kind == "packet":
+            name = PACKET_SPECS[i][0]
+            packet_errs[f"{name}_{i}"] = _check_packet(name, out,
+                                                       packets[i][1])
         else:
             {"mp3": mp3_outs, "aac": aac_outs, "vorbis": vorbis_outs,
              "l12": l12_outs}[kind].append(out)
@@ -984,6 +1217,10 @@ def phase_slice() -> dict:
     alone = batch.decode_bytes(vorbis[0], device="cuda").samples
     if not np.array_equal(alone, vorbis_outs[0].samples):
         raise AssertionError("vorbis merged decode differs from per-file")
+    # The per-packet entries alone, for their share of the wall time.
+    t0 = time.perf_counter()
+    batch.decode_many([p[0] for p in packets])
+    packet_wall = time.perf_counter() - t0
     # Layer I/II against the port's CPU-twin path at the reference's bar.
     cpu = batch.Mp3BatchDecoder(device="cpu").decode_many(l12s)
     e_l12 = 0.0
@@ -1000,19 +1237,187 @@ def phase_slice() -> dict:
         "entries": len(datas), "flac_entries": N_FLAC_ENTRIES,
         "mp3_entries": len(mp3s), "aac_entries": len(aacs),
         "vorbis_entries": len(vorbis), "layer12_entries": len(l12s),
+        "packet_entries": len(packets),
         "input_build_s": round(build_s, 1),
         "wall_s": round(wall, 3), "audio_s": round(audio_s, 1),
         "realtime_x": round(audio_s / wall, 1), "host_routes": routes,
+        "packet_routes": packet_routes,
         "aac_only_wall_s": round(aac_wall, 3),
+        "packet_only_wall_s": round(packet_wall, 3),
         "vorbis_only_wall_s": round(vorbis_wall, 3),
         "launches": launches, "off_path": list(OFF_PATH),
         "vorbis_block_sizes": sorted(sizes), "l12_widths": sorted(widths),
         "mp3_max_abs_err_vs_cpu": e_mp3, "aac_max_abs_err_vs_cpu": e_aac,
         "vorbis_max_err_vs_cpu_over_peak": e_vorbis,
         "layer12_max_abs_err_vs_cpu": e_l12,
+        "packet_err_vs_source": packet_errs,
         "card": card_line(),
     }
     print("phase 3 slice decode_many:", json.dumps(info), flush=True)
+    return info
+
+
+def _check_packet(name: str, out, src: np.ndarray) -> float:
+    """A per-packet entry against its source: lossless ones bit for bit
+    (float32 by its bits), ADPCM within 1% of the source's RMS. Returns the
+    error (RMS over the source's for ADPCM, else 0)."""
+    got = out.samples
+    if name in LOSSY_PACKET:
+        n = src.shape[1]
+        if got.shape[0] != 1 or got.shape[1] < n:
+            raise AssertionError(f"{name}: shape {got.shape}")
+        err = float(np.sqrt(np.mean((got[:, :n] - src.astype(np.float64))
+                                    ** 2) / np.mean(src.astype(np.float64)
+                                                    ** 2)))
+        if err > 1e-2:
+            raise AssertionError(f"{name}: RMS error {err} of the source's")
+        return err
+    if got.shape != src.shape:
+        raise AssertionError(f"{name}: shape {got.shape} != {src.shape}")
+    same = (np.array_equal(got.view(np.int32), src.view(np.int32))
+            if src.dtype == np.float32
+            else np.array_equal(got.astype(np.int64), src))
+    if not same:
+        raise AssertionError(f"{name} differs from its source")
+    if name == "flac_mkv" and out.md5_ok is not True:
+        raise AssertionError(f"flac_mkv: md5_ok={out.md5_ok}")
+    return 0.0
+
+
+def phase_pcm_batch(inputs) -> dict:
+    """P1's path: the PCM entries of phase 3 demuxed with the port's
+    readers, each codec's packets padded into one [B, max_bytes] uint8
+    batch on the card and unpacked there; the caller de-interleaves and
+    trims each packet (the reference's contract for decode_pcm_batch_jax).
+    Bit for bit against decode_pcm_np packet by packet, the twin, and the
+    sources."""
+    import torch
+
+    from symphonia_tpu_torch import get_probe
+    from symphonia_tpu_torch.core.io import MediaSourceStream
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import pcm
+
+    packets = inputs[5]
+    dev = torch.device("cuda")
+    streams = []  # (entry, codec, channels, bits_per_coded_sample, packets)
+    for j, (data, src) in enumerate(packets):
+        fmt = get_probe().probe(MediaSourceStream(data)).format
+        track = fmt.default_track()
+        params = track.codec_params
+        if params.codec not in pcm.DEVICE_CODECS:
+            continue
+        pkts = []
+        while (p := fmt.next_packet()) is not None:
+            if p.track_id == track.id:
+                pkts.append(bytes(p.data))
+        streams.append((j, params.codec, params.channels.count,
+                        params.bits_per_coded_sample, pkts))
+    groups = {}
+    for st in streams:
+        groups.setdefault(st[1], []).append(st)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    got = {}
+    for codec, group in groups.items():
+        rows = [p for st in group for p in st[4]]
+        buf = np.zeros((len(rows), max(len(p) for p in rows)), np.uint8)
+        for r, p in enumerate(rows):
+            buf[r, : len(p)] = np.frombuffer(p, np.uint8)
+        x = torch.from_numpy(buf).to(dev)
+        got[codec] = (x, pcm.decode_pcm_batch(x, codec))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if launches["pcm_unpack"] != len(groups):
+        raise AssertionError(f"pcm_batch: {launches['pcm_unpack']} launches "
+                             f"for {len(groups)} codecs")
+    n_packets, n_bytes = 0, 0
+    for codec, group in groups.items():
+        x, out = got[codec]
+        if not torch.equal(out.view(torch.int32), pcm.decode_pcm_batch_plain(
+                x, codec).view(torch.int32)):
+            raise AssertionError(f"pcm_batch {codec}: kernel vs twin")
+        out = out.cpu().numpy()
+        bps = pcm.DEVICE_CODECS[codec][0]
+        r = 0
+        for j, _, ch, bits, pkts in group:
+            planes = []
+            for p in pkts:
+                n = len(p) // (bps * ch) * ch
+                planar = out[r, :n].reshape(-1, ch).T
+                want = pcm.decode_pcm_np(p, codec, ch, bits)
+                if want.dtype != planar.dtype or not np.array_equal(
+                        planar.view(np.int32), want.view(np.int32)):
+                    raise AssertionError(f"pcm_batch {codec} entry {j}: a "
+                                         "packet differs from decode_pcm_np")
+                planes.append(planar)
+                r += 1
+                n_bytes += len(p)
+            n_packets += len(pkts)
+            src = packets[j][1]
+            whole = np.concatenate(planes, axis=1)
+            if not (np.array_equal(whole.view(np.int32), src.view(np.int32))
+                    if src.dtype == np.float32
+                    else np.array_equal(whole.astype(np.int64), src)):
+                raise AssertionError(f"pcm_batch {codec} entry {j} differs "
+                                     "from its source")
+    info = {"streams": len(streams), "codecs": sorted(groups),
+            "packets": n_packets, "bytes": n_bytes,
+            "batches": {c: list(got[c][0].shape) for c in groups},
+            "wall_s": round(wall, 4), "launches": launches,
+            "card": card_line()}
+    print("phase 4 pcm_batch:", json.dumps(info), flush=True)
+    return info
+
+
+def phase_rice_bench() -> dict:
+    """R1's path: the port's bench tool at its defaults, then R1 at that
+    shape against its twin on the card, the encoded values and the
+    reference's scalar oracle on four lanes."""
+    import torch
+
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import rice_device as rd
+    from symphonia_tpu_torch.tools import bench_rice_device
+
+    _build.reset_launches()
+    res = bench_rice_device.main()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if not res["correct_slice"]:
+        raise AssertionError("bench_rice_device: correctness slice failed")
+    B, n, k = RICE_SIZE["B"], RICE_SIZE["n"], RICE_SIZE["k"]
+    dev = torch.device("cuda")
+    data, cur, vals = rd.make_test_streams(B, n, k)
+    words = torch.from_numpy(rd.pack_bits_u32(data)).to(dev)
+    cur0 = torch.from_numpy(np.asarray(cur, np.int32)).to(dev)
+    par = torch.from_numpy(np.full(B, k, np.int32)).to(dev)
+    got, got_end = rd.rice_decode_lanes(words, cur0, par, n)
+    want, want_end = rd.rice_decode_lanes_plain(words, cur0, par, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got_end, want_end)):
+        raise AssertionError("rice_decode differs from its twin")
+    got_np = got.cpu().numpy()
+    if not np.array_equal(got_np, vals):
+        raise AssertionError("rice_decode differs from the encoded values")
+    lanes = np.array([0, 1, B // 2, B - 1])
+    oracle = rd.rice_decode_oracle(data, cur[lanes], np.full(4, k), n)
+    if not np.array_equal(got_np[lanes], oracle):
+        raise AssertionError("rice_decode differs from the scalar oracle")
+    info = {"bench": {kk: (round(v, 4) if isinstance(v, float) else v)
+                      for kk, v in res.items()},
+            "size": RICE_SIZE, "stream_bytes": len(data),
+            "launches": launches, "card": card_line()}
+    print("phase 5 rice_bench:", json.dumps(info), flush=True)
+    info["kernel"] = dict(
+        max_abs_err=0, shape=[B, n],
+        ms=cuda_ms(lambda: rd.rice_decode_lanes(words, cur0, par, n), 10),
+        plain_ms=cuda_ms(lambda: rd.rice_decode_lanes_plain(
+            words, cur0, par, n), 1),
+        library_ms=None, **bound(*work_rice_decode(words.numel(), B, n)))
+    print("phase 5 rice_decode vs twin:", json.dumps(
+        _rounded({"rice_decode": info["kernel"]})), flush=True)
     return info
 
 
@@ -1110,7 +1515,7 @@ def phase_entry_step() -> dict:
         "handoff_max_abs_err_vs_plain": handoff_errs,
         "card": card_line(),
     }
-    print("phase 4 entry step:", json.dumps(info), flush=True)
+    print("phase 6 entry step:", json.dumps(info), flush=True)
     missing = [k for k in STEP_PATH if launches[k] <= 0]
     if missing:
         raise AssertionError(f"entry step: {missing} not launched")
@@ -1135,9 +1540,16 @@ def main() -> int:
     kern = phase_kernels()
     kern.update(phase_aac_kernels())
     kern.update(phase_vorbis_l12_kernels())
-    sl = phase_slice()
+    kern.update(phase_pcm_kernel())
+    inputs = build_inputs()
+    sl = phase_slice(inputs)
+    pb = phase_pcm_batch(inputs)
+    del inputs
+    rb = phase_rice_bench()
+    kern["rice_decode"] = rb["kernel"]
     st = phase_entry_step()
-    paths = {"decode_many": sl["launches"], "entry_step": st["launches"],
+    paths = {"decode_many": sl["launches"], "pcm_batch": pb["launches"],
+             "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():

@@ -1,16 +1,23 @@
 """Batch decode sessions on PyTorch: files -> PCM through the port's kernels.
 
-Port of ``symphonia_tpu/batch.py`` for FLAC, MPEG audio (Layers I, II and
-III), AAC-LC and Ogg Vorbis. The host stage (probe, demuxers, native C++
-entropy extraction) is the port's own copy of the reference's; the dense
-stage runs on the ``device`` every decoder is given explicitly: the
-hand-written CUDA kernels on ``"cuda"``, their plain PyTorch twins on
-``"cpu"``. Nothing picks a device or falls back to the CPU on its own.
+Port of ``symphonia_tpu/batch.py``. The host stage (probe, demuxers, native
+C++ entropy extraction, the per-packet codecs) is the port's own copy of
+the reference's. FLAC, MPEG audio (Layers I, II and III), AAC-LC and Ogg
+Vorbis take their batch decoders, whose dense stage runs on ``device``:
+the hand-written CUDA kernels on ``"cuda"`` (the default of every entry
+point), their plain PyTorch twins on ``"cpu"``. A call without a device
+runs on the card or raises when there is none; nothing falls back to the
+CPU on its own.
 
-Only the cases where the reference itself leaves the device take the host
-route (:func:`_host_decode`): FLAC above 25 bits per sample, a malformed
-MPEG audio stream, no native library for MPEG audio. Each use adds one to
-``host_routes``. Other codecs and containers raise ``NotImplementedError``.
+Every other stream (PCM in WAV, AIFF, CAF or MP4, ADPCM, ALAC, and codecs
+in foreign containers such as FLAC in Matroska) takes the reference's own
+per-packet loop (:func:`_packet_decode`, ``symphonia_tpu/batch.py:715-743``)
+through the registry's decoder on the host, as in the reference; each such
+stream adds one to ``packet_routes``. Only the cases where the reference
+itself leaves the device for a batch codec take the host route
+(:func:`_host_decode`): FLAC above 25 bits per sample, a malformed MPEG
+audio stream, no native library for MPEG audio. Each use adds one to
+``host_routes``.
 """
 
 from __future__ import annotations
@@ -35,18 +42,14 @@ from .ops.vorbis_dense import (VorbisDense, decode_packets_dense,
 
 logger = logging.getLogger("symphonia_tpu_torch.batch")
 
-# Decodes that took the exact host route (see module docstring).
+# Decodes that took the exact host route, and streams that took the
+# per-packet loop (see module docstring).
 host_routes = 0
-
-
-def _not_ported(codec) -> NotImplementedError:
-    return NotImplementedError(
-        f"{codec!r}: per-packet decode of other codecs and containers "
-        "(ROADMAP.md Queue 1 item 4) is not ported to symphonia_tpu_torch yet")
+packet_routes = 0
 
 
 def resolve_device(device) -> torch.device:
-    """An explicit device, checked: CUDA must be present when asked for."""
+    """The device, checked: CUDA must be present when asked for."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -101,7 +104,7 @@ class FlacBatchDecoder:
     ``lane_chunk`` bounds how many subframe lanes go to the device per
     dispatch (memory bound); any lane count is a valid kernel shape."""
 
-    def __init__(self, *, device, lane_chunk: int = 8192,
+    def __init__(self, *, device="cuda", lane_chunk: int = 8192,
                  verify: bool = False):
         self.device = resolve_device(device)
         self.lane_chunk = lane_chunk
@@ -323,7 +326,7 @@ class Mp3BatchDecoder:
     frame-parallel polyphase stage (:class:`ops.mp3_dense.L12Dense`) in
     chained chunks of ``granule_chunk`` frames."""
 
-    def __init__(self, *, device, granule_chunk: int = 4096,
+    def __init__(self, *, device="cuda", granule_chunk: int = 4096,
                  gapless: bool = True):
         self.device = resolve_device(device)
         self.granule_chunk = granule_chunk
@@ -537,7 +540,7 @@ class AacBatchDecoder:
 
     LANE_CHUNK = 32768
 
-    def __init__(self, *, device):
+    def __init__(self, *, device="cuda"):
         self.device = resolve_device(device)
         self._dense: Optional[AacDense] = None
 
@@ -662,7 +665,7 @@ class VorbisBatchDecoder:
     ``vorbis_dense.LANE_CHUNK`` lanes, and the reference's numpy lap stitch
     per stream."""
 
-    def __init__(self, *, device):
+    def __init__(self, *, device="cuda"):
         self.device = resolve_device(device)
         self.dense = VorbisDense({}, self.device)
 
@@ -763,40 +766,36 @@ def _audio_track_or_raise(fmt):
     return track
 
 
+def _decoded(fmt, track, dec):
+    """The track's packets through ``dec``, one buffer each; a corrupt
+    packet is skipped, as the reference's decode loop does."""
+    while (pkt := fmt.next_packet()) is not None:
+        if pkt.track_id != track.id:
+            continue
+        try:
+            buf = dec.decode(pkt)
+        except DecodeError:
+            continue
+        yield buf
+
+
 def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
     """Exact per-packet host decode of a FLAC or MPEG audio stream, for the
-    cases where the reference also leaves the device."""
+    cases where the reference also leaves the device (its
+    ``_fallback_decode``, ``symphonia_tpu/batch.py:576-606``)."""
     global host_routes
-    from . import get_probe
+    from . import get_codecs, get_probe
     from .core.formats import FormatOptions
 
     probed = get_probe().probe(
         MediaSourceStream(data), fmt_opts=FormatOptions(enable_gapless=gapless))
     fmt = probed.format
     track = _audio_track_or_raise(fmt)
-    codec = track.codec_params.codec
-    if codec == "flac":
-        from .codecs.flac import FlacDecoder as Dec
-    elif codec in ("mp1", "mp2", "mp3"):
-        from .codecs.mpa import MpaDecoder as Dec
-    else:
-        raise _not_ported(codec)
+    dec = get_codecs().make_audio_decoder(track.codec_params)
     host_routes += 1
-    logger.info("host route for a %s stream", codec)
-    dec = Dec(track.codec_params)
-    outs = []
-    while True:
-        pkt = fmt.next_packet()
-        if pkt is None:
-            break
-        if pkt.track_id != track.id:
-            continue
-        try:
-            buf = dec.decode(pkt)
-        except DecodeError:
-            continue  # skip the corrupt packet like the reference loop
-        if buf.frames:
-            outs.append(buf.planes().copy())
+    logger.info("host route for a %s stream", track.codec_params.codec)
+    outs = [buf.planes().copy() for buf in _decoded(fmt, track, dec)
+            if buf.frames]
     n_ch = (track.codec_params.channels.count
             if track.codec_params.channels else 1)
     pcm = (np.concatenate(outs, axis=1) if outs
@@ -805,13 +804,34 @@ def _host_decode(data: bytes, gapless: bool) -> DecodedAudio:
                         track.codec_params.bits_per_sample or 32)
 
 
+def _packet_decode(fmt, track, verify: bool) -> DecodedAudio:
+    """The reference's per-packet loop for a stream no batch pipeline
+    takes (``symphonia_tpu/batch.py:715-743``): the registry's decoder,
+    corrupt packets skipped, the planes concatenated, the decoder's own
+    verification (FLAC's MD5) as ``md5_ok``."""
+    global packet_routes
+    from . import get_codecs
+    from .core.codecs import AudioDecoderOptions
+
+    dec = get_codecs().make_audio_decoder(
+        track.codec_params, AudioDecoderOptions(verify=verify))
+    packet_routes += 1
+    outs = [buf.planes().copy() for buf in _decoded(fmt, track, dec)]
+    pcm = (np.concatenate(outs, axis=1) if outs
+           else np.zeros((track.codec_params.channels.count, 0), np.int32))
+    return DecodedAudio(pcm, track.codec_params.sample_rate,
+                        track.codec_params.bits_per_sample or 32,
+                        dec.finalize().verify_ok)
+
+
 _MPA = ("mp1", "mp2", "mp3")
 
 
-def _route(data: bytes) -> str:
-    """Probe one stream -> 'flac', 'mp1'/'mp2'/'mp3' or 'vorbis' for the
-    batch pipelines (native containers only, as in the reference), 'aac'
-    in any container, else a label of what it is."""
+def _probe(data: bytes):
+    """Probe one stream -> (route, format reader, track). The route is
+    'flac', 'mp1'/'mp2'/'mp3' or 'vorbis' for the batch pipelines (native
+    containers only, as in the reference), 'aac' in any container, else
+    'packet' for the per-packet loop."""
     from . import get_probe
     from .formats.flac import FlacReader
     from .formats.mpa import MpaReader
@@ -821,22 +841,26 @@ def _route(data: bytes) -> str:
     track = _audio_track_or_raise(fmt)
     codec = track.codec_params.codec
     if codec == "flac" and isinstance(fmt, FlacReader):
-        return "flac"
-    if codec in _MPA and isinstance(fmt, MpaReader):
-        return codec
-    if codec == "vorbis" and isinstance(fmt, OggReader):
-        return "vorbis"
-    if codec == "aac":  # any container: the AAC decoder re-probes
-        return "aac"
-    return f"{codec} in {type(fmt).__name__}"
+        route = "flac"
+    elif codec in _MPA and isinstance(fmt, MpaReader):
+        route = codec
+    elif codec == "vorbis" and isinstance(fmt, OggReader):
+        route = "vorbis"
+    elif codec == "aac":  # any container: the AAC decoder re-probes
+        route = "aac"
+    else:
+        route = "packet"
+    return route, fmt, track
 
 
-def decode_bytes(data: bytes, *, device, verify: bool = False
+def decode_bytes(data: bytes, *, device="cuda", verify: bool = False
                  ) -> DecodedAudio:
-    """Decode one FLAC, MPEG audio (Layer I, II or III), AAC-LC or Ogg
-    Vorbis stream on ``device``."""
+    """Decode one stream of any format and codec the port reads: FLAC, MPEG
+    audio (Layer I, II or III), AAC-LC and Ogg Vorbis through their batch
+    decoders on ``device``, every other stream through the per-packet
+    loop."""
     resolve_device(device)
-    route = _route(data)
+    route, fmt, track = _probe(data)
     if route == "flac":
         return FlacBatchDecoder(device=device, verify=verify).decode_bytes(data)
     if route in _MPA:
@@ -845,31 +869,35 @@ def decode_bytes(data: bytes, *, device, verify: bool = False
         return AacBatchDecoder(device=device).decode_bytes(data)
     if route == "vorbis":
         return VorbisBatchDecoder(device=device).decode_bytes(data)
-    raise _not_ported(route)
+    return _packet_decode(fmt, track, verify)
 
 
-def decode_file(path: str, *, device, verify: bool = False) -> DecodedAudio:
+def decode_file(path: str, *, device="cuda", verify: bool = False
+                ) -> DecodedAudio:
     with open(path, "rb") as f:
         data = f.read()
     return decode_bytes(data, device=device, verify=verify)
 
 
-def decode_many(datas: Sequence[bytes], *, device,
+def decode_many(datas: Sequence[bytes], *, device="cuda",
                 verify: bool = False) -> List[DecodedAudio]:
     """Decode a batch of streams, merging device work across files.
 
     The serving entry point: streams are probed and grouped by codec;
     FLAC, MP3 Layer III, AAC and Vorbis groups each share merged
     dispatches, and Layer I/II streams decode one by one, as in the
-    reference. Output order matches input order. Fail-fast: an undecodable
-    stream raises what ``decode_bytes`` raises for it, and a codec outside
-    the port raises ``NotImplementedError`` before any decoding starts."""
+    reference. Streams that no batch pipeline takes decode through the
+    per-packet loop, in input order, before the groups. Output order
+    matches input order. Fail-fast: an undecodable stream raises what
+    ``decode_bytes`` raises for it."""
     resolve_device(device)
-    routes = [_route(d) for d in datas]
-    for r in routes:
-        if r not in ("flac", "aac", "vorbis") + _MPA:
-            raise _not_ported(r)
+    routes = []
     results: List[Optional[DecodedAudio]] = [None] * len(datas)
+    for i, data in enumerate(datas):
+        route, fmt, track = _probe(data)
+        routes.append(route)
+        if route == "packet":
+            results[i] = _packet_decode(fmt, track, verify)
     for codecs, dec in (
             (("flac",), FlacBatchDecoder(device=device, verify=verify)),
             (_MPA, Mp3BatchDecoder(device=device)),

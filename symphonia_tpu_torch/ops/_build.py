@@ -37,7 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
-           "mpa_l12_synth", "vorbis_lap")
+           "mpa_l12_synth", "vorbis_lap", "pcm_unpack", "rice_decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -73,6 +73,11 @@ _SIGNATURES = {
     "mpa_l12_synth_launch": [_P] * 5 + [_I, _I, _I, _P],
     # t, w, pcm, V, n1, stream
     "vorbis_lap_launch": [_P] * 3 + [_I64, _I, _P],
+    # in, table (None unless G.711), out, B, N, bps, big_endian, finish,
+    # stream
+    "pcm_unpack_launch": [_P] * 3 + [_I64, _I64, _I, _I, _I, _P],
+    # words, W, cur, param, out, cur_end, B, n, stream
+    "rice_decode_launch": [_P, _I64] + [_P] * 4 + [_I64, _I, _P],
 }
 
 

@@ -1,14 +1,23 @@
-"""PCM sample conversion on the host.
+"""PCM sample conversion: the host oracle and the batch unpack kernel.
 
-The numpy half of ``symphonia_tpu/ops/pcm.py`` (its G.711 tables and
-``decode_pcm_np``, lines 25-166, copied): raw packet bytes -> planar
-samples, the oracle and the per-packet decoder's path
-(``codecs/pcm.py``). The device kernel (K12) is not ported yet.
+Port of ``symphonia_tpu/ops/pcm.py``. Its numpy half (the G.711 tables
+and ``decode_pcm_np``, lines 25-166) is copied: raw packet bytes ->
+planar samples, the oracle and the per-packet decoder's path
+(``codecs/pcm.py``). Its device half (K12, ``_combine_bytes_int`` and
+``decode_pcm_batch_jax``, lines 174-230) is :func:`decode_pcm_batch`: a
+padded ``[B, N]`` uint8 batch -> ``[B, N // bps]`` samples through the
+hand-written kernel P1 ``pcm_unpack`` (``csrc/pcm.cu``) for CUDA tensors,
+or its plain PyTorch twin :func:`decode_pcm_batch_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
+import torch
+
+from . import _build
 
 # ---------------------------------------------------------------------------
 # G.711 companding tables (codec-pcm lib.rs:154-181)
@@ -157,3 +166,84 @@ def decode_pcm_np(
 
     frames = len(x) // channels
     return np.ascontiguousarray(x[: frames * channels].reshape(frames, channels).T)
+
+
+# ---------------------------------------------------------------------------
+# Batch unpack: P1 pcm_unpack (K12) and its plain twin
+# ---------------------------------------------------------------------------
+
+# The kernel's finishing step (csrc/pcm.cu): sign-extend from 8 * bps bits,
+# subtract 1 << (8 * bps - 1) in uint32 (for u32 that is the reference's
+# sign-bit flip), or look the byte up in a G.711 table.
+SIGNED, UNSIGNED, TABLE = 0, 1, 2
+
+# codec -> (bytes per sample, big endian, finish); f32 is the signed 32-bit
+# word, its bits reinterpreted as float32.
+DEVICE_CODECS: Dict[str, Tuple[int, bool, int]] = {
+    "pcm_u8": (1, False, UNSIGNED), "pcm_s8": (1, False, SIGNED),
+    "pcm_mulaw": (1, False, TABLE), "pcm_alaw": (1, False, TABLE),
+    **{f"pcm_{s}{b}{e}": (b // 8, e == "be", SIGNED if s == "s" else UNSIGNED)
+       for s in ("s", "u") for b in (16, 24, 32) for e in ("le", "be")},
+    "pcm_f32le": (4, False, SIGNED), "pcm_f32be": (4, True, SIGNED),
+}
+_G711 = {"pcm_mulaw": MULAW_TABLE, "pcm_alaw": ALAW_TABLE}
+
+
+def _layout(batch_u8, codec: str) -> Tuple[int, bool, int]:
+    if codec not in DEVICE_CODECS:
+        raise ValueError(f"no device kernel for codec {codec}")
+    if batch_u8.dtype != torch.uint8 or batch_u8.dim() != 2:
+        raise ValueError("expected a [B, N] uint8 batch")
+    return DEVICE_CODECS[codec]
+
+
+def decode_pcm_batch_plain(batch_u8: torch.Tensor, codec: str
+                           ) -> torch.Tensor:
+    """Twin of P1: the reference's ``decode_pcm_batch_jax`` in plain tensor
+    code. Each row's bytes combine in int64 (no intermediate wraps), then
+    the finish maps them into int32 exactly as the reference's int32
+    arithmetic wraps."""
+    bps, be, fin = _layout(batch_u8, codec)
+    B, N = batch_u8.shape
+    n = N // bps
+    b = batch_u8[:, : n * bps].reshape(B, n, bps).to(torch.int64)
+    if fin == TABLE:
+        table = torch.from_numpy(_G711[codec].astype(np.int32))
+        return table.to(batch_u8.device)[b[:, :, 0]]
+    if be:
+        b = b.flip(2)
+    x = b[:, :, 0]
+    for i in range(1, bps):
+        x = x | (b[:, :, i] << (8 * i))
+    bits = 8 * bps
+    if fin == SIGNED:
+        x = x - ((x >> (bits - 1)) << bits)
+    else:
+        x = x - (1 << (bits - 1))
+    x = x.to(torch.int32)
+    return x.view(torch.float32) if codec.startswith("pcm_f32") else x
+
+
+def decode_pcm_batch(batch_u8: torch.Tensor, codec: str) -> torch.Tensor:
+    """P1 wrapper, the port of ``decode_pcm_batch_jax``: a padded ``[B, N]``
+    uint8 batch -> ``[B, N // bps]`` int32 samples (float32 for
+    ``pcm_f32le``/``be``: the same bits). Trailing bytes of a row that do
+    not fill a sample are dropped. Channel de-interleave and trimming to
+    each packet's length happen in the caller. ``pcm_f64le``/``be`` and
+    other codecs raise ``ValueError``, as in the reference."""
+    bps, be, fin = _layout(batch_u8, codec)
+    if _build.device_type(batch_u8) == "cpu":
+        return decode_pcm_batch_plain(batch_u8, codec)
+    x = batch_u8.contiguous()
+    dev = _build.require_cuda(x)
+    B, N = x.shape
+    out = torch.empty((B, N // bps), dtype=torch.int32, device=dev)
+    if out.numel():
+        table = (torch.from_numpy(_G711[codec].astype(np.int32)).to(dev)
+                 if fin == TABLE else None)
+        err = _build.lib().pcm_unpack_launch(
+            x.data_ptr(), None if table is None else table.data_ptr(),
+            out.data_ptr(), B, N, bps, int(be), fin, _build.stream_ptr(dev))
+        _build.LAUNCHES["pcm_unpack"] += 1
+        _build.check("pcm_unpack", err)
+    return out.view(torch.float32) if codec.startswith("pcm_f32") else out

@@ -1,5 +1,6 @@
-"""Guards of the PyTorch port: it never imports JAX, never picks a device
-or falls back to the CPU on its own, and refuses what it has not ported."""
+"""Guards of the PyTorch port: it never imports JAX, runs on the card unless
+the caller asks for the CPU, never falls back to the CPU on its own, and
+builds and counts every kernel."""
 
 import ast
 import os
@@ -152,6 +153,15 @@ def test_port_sources_import_no_jax():
     lambda: port.decode_bytes(b"", device="cuda"),
     lambda: entry.entry(),
     lambda: entry.entry(device="cuda"),
+    # No device argument: the card, by default.
+    lambda: port.FlacBatchDecoder(),
+    lambda: port.Mp3BatchDecoder(),
+    lambda: port.AacBatchDecoder(),
+    lambda: port.VorbisBatchDecoder(),
+    lambda: port.decode_bytes(b""),
+    lambda: port.decode_many([]),
+    lambda: _bench_rice_device().main(),
+    lambda: _batch_serving().main(["any.wav"]),
 ])
 def test_cuda_without_cuda_raises(make):
     if torch.cuda.is_available():
@@ -175,19 +185,52 @@ def test_decode_many_cuda_without_cuda_decodes_nothing(monkeypatch):
     assert calls == []
 
 
+def _bench_rice_device():
+    from symphonia_tpu_torch.tools import bench_rice_device
+
+    return bench_rice_device
+
+
+def _batch_serving():
+    from symphonia_tpu_torch.examples import batch_serving
+
+    return batch_serving
+
+
 def test_device_is_required():
-    with pytest.raises(TypeError):
-        port.FlacBatchDecoder()
-    with pytest.raises(TypeError):
-        port.Mp3BatchDecoder()
-    with pytest.raises(TypeError):
-        port.AacBatchDecoder()
-    with pytest.raises(TypeError):
-        port.VorbisBatchDecoder()
-    with pytest.raises(TypeError):
-        port.decode_many([])
+    # Every entry point takes a device, and without one it is the card.
+    import inspect
+
+    for fn in (port.FlacBatchDecoder, port.Mp3BatchDecoder,
+               port.AacBatchDecoder, port.VorbisBatchDecoder,
+               port.decode_bytes, port.decode_file, port.decode_many,
+               entry.entry, _bench_rice_device().main,
+               _batch_serving().main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(ValueError):
         port.FlacBatchDecoder(device="meta")
+
+
+@pytest.mark.parametrize("call", ["decode_bytes", "decode_many"])
+@pytest.mark.parametrize("make", ["flac", "wav"])
+def test_default_device_without_cuda_decodes_nothing(monkeypatch, call,
+                                                     make):
+    # With no card, a call that names no device raises before any decoder
+    # runs: nothing falls back to the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _flac() if make == "flac" else _wav()
+    calls = []
+    monkeypatch.setattr(port.FlacBatchDecoder, "_decode_packed_chunked",
+                        lambda *a: calls.append(a))
+    monkeypatch.setattr(port, "_packet_decode", lambda *a: calls.append(a))
+    before = (port.packet_routes, port.host_routes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if call == "decode_bytes":
+            port.decode_bytes(data)
+        else:
+            port.decode_many([data])
+    assert calls == []
+    assert (port.packet_routes, port.host_routes) == before
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -243,6 +286,7 @@ def test_build_hash_follows_sources():
     srcs = _build._sources()
     assert {s.name for s in srcs} >= {"flac_dense.cu", "mp3_dense.cu",
                                       "aac_dense.cu", "vorbis_dense.cu",
+                                      "pcm.cu", "rice_device.cu",
                                       "simt_gemm.cuh"}
     assert _build._source_hash(srcs) == _build._source_hash(srcs)
     assert set(_build.LAUNCHES) == set(_build.KERNELS)
@@ -250,8 +294,9 @@ def test_build_hash_follows_sources():
 
 @pytest.mark.parametrize("kernel", _build.KERNELS)
 def test_every_kernel_has_a_c_entry_point(kernel):
-    # V2 vorbis_lap among them: a counted launch and a declared signature.
-    assert len(_build.KERNELS) == 10 and "vorbis_lap" in _build.KERNELS
+    # V2, P1 and R1 among them: a counted launch and a declared signature.
+    assert len(_build.KERNELS) == 12
+    assert {"vorbis_lap", "pcm_unpack", "rice_decode"} <= set(_build.KERNELS)
     assert f"{kernel}_launch" in _build._SIGNATURES
     assert any(f"{kernel}_launch(" in s.read_text()
                for s in _build._sources() if s.suffix == ".cu")
@@ -299,26 +344,52 @@ def _flac():
                            kind="fixed", order=1)
 
 
-@pytest.mark.parametrize("make,item", [(_wav, "item 4"), (_adpcm, "item 4")])
-def test_codec_outside_slice_raises(make, item):
-    data = make()
-    with pytest.raises(NotImplementedError, match=item):
-        port.decode_bytes(data, device="cpu")
-    before = port.host_routes
-    with pytest.raises(NotImplementedError, match=item):
-        port.decode_many([_flac(), data], device="cpu")
-    assert port.host_routes == before
-
-
-@pytest.mark.parametrize("make,channels", [(_vorbis, 1), (_layer2, 1)])
+@pytest.mark.parametrize("make,channels", [(_vorbis, 1), (_layer2, 1),
+                                           (_wav, 2), (_adpcm, 1)])
 def test_codec_in_slice_decodes(make, channels):
-    # The inputs that raised before their slices were ported.
+    # The inputs that raised before their slices were ported: WAV and IMA
+    # ADPCM take the per-packet loop, counted in packet_routes.
     data = make()
-    before = port.host_routes
+    packet = make in (_wav, _adpcm)
+    before = (port.host_routes, port.packet_routes)
     one = port.decode_bytes(data, device="cpu")
+    assert port.packet_routes == before[1] + packet
     both = port.decode_many([_flac(), data], device="cpu")
-    assert port.host_routes == before
+    assert port.host_routes == before[0]
+    assert port.packet_routes == before[1] + 2 * packet
     assert one.samples.shape[0] == channels and one.samples.shape[1] > 0
     assert np.isfinite(one.samples).all() and one.samples.any()
     np.testing.assert_array_equal(both[1].samples, one.samples)
     assert both[0].samples.shape == (1, 512)
+
+
+def test_example_and_bench_tool_never_import_jax(tmp_path):
+    # The per-packet path, the batch serving example and the Rice bench
+    # tool run in a fresh interpreter that refuses the reference package
+    # and JAX.
+    (tmp_path / "a.wav").write_bytes(_wav())
+    (tmp_path / "b.wav").write_bytes(_adpcm())
+    code = _REFUSE + textwrap.dedent("""
+        import pathlib
+        sys.path.insert(0, sys.argv[1])
+        d = pathlib.Path(sys.argv[2])
+        from symphonia_tpu_torch import batch
+        from symphonia_tpu_torch.examples import batch_serving
+        from symphonia_tpu_torch.tools import bench_rice_device
+        assert batch_serving.main([str(d / "a.wav"), str(d / "b.wav")],
+                                  device="cpu") == 0
+        assert batch.packet_routes == 2
+        res = bench_rice_device.main(B=8, n=16, k=4, iters=1, device="cpu")
+        assert res["correct_slice"] is True
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("symphonia_tpu", "jax", "jaxlib")]
+        assert not bad, bad
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, ROOT, str(tmp_path)],
+                          capture_output=True, text=True, timeout=120,
+                          env=env, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert "a.wav: 2 ch" in proc.stdout and "b.wav: 1 ch" in proc.stdout

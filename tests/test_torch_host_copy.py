@@ -31,7 +31,7 @@ COPIED = ([(f"symphonia_tpu/{r}", f"symphonia_tpu_torch/{r}") for r in _HOST]
               "symphonia_tpu_torch/ops/imdct_host.py")]
           + [(f"tests/{n}", f"symphonia_tpu_torch/testing/{n}")
              for n in ("flac_builder.py", "mp3_builder.py", "aac_builder.py",
-                       "vorbis_builder.py")])
+                       "vorbis_builder.py", "alac_builder.py")])
 
 # A line outside the import statements may differ only where it names a
 # package (``__import__``'s argument) or the data directory.
@@ -80,6 +80,19 @@ PARTS = [
      ("build_l1_frame", "build_l2_frame", "_rand_l2_frame")),
     ("test_vorbis_ogg", "symphonia_tpu_torch.testing.ogg_builder",
      ("_ogg_page",)),
+    ("symphonia_tpu.ops.rice_device", "symphonia_tpu_torch.ops.rice_device",
+     ("pack_bits_u32", "rice_decode_oracle", "make_test_streams")),
+    ("test_wav_pcm", "symphonia_tpu_torch.testing.wav_builder",
+     ("make_wav",)),
+    ("test_aiff_caf", "symphonia_tpu_torch.testing.aiff_caf_builder",
+     ("pack_f80", "make_aiff", "make_caf")),
+    ("test_adpcm", "symphonia_tpu_torch.testing.adpcm_builder",
+     ("ima_encode", "ms_encode", "make_adpcm_wav")),
+    ("test_mkv", "symphonia_tpu_torch.testing.mkv_builder",
+     ("vint_size", "elem", "uint_elem", "float_elem", "simple_block",
+      "build_mkv")),
+    ("test_mp4", "symphonia_tpu_torch.testing.mp4_builder",
+     ("atom", "full_atom", "build_pcm_m4a")),
 ]
 
 
