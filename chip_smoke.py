@@ -11,9 +11,15 @@ Phases (one line each; any failure raises and exits non-zero):
      its plain PyTorch twin on the card at the main path's shapes, with
      CUDA-event times for both; the MP3 dense stage against the reference's
      numpy oracle on a small input, and chained over two calls against one
-     call; A2 bit for bit against ``native.aac_dequant_host``, A3 against
-     the reference's sequential ``window_ola_chain``; V1 at both ends of the
-     Vorbis block sizes (64 and 8192); L1 for Layer I and II, chained over
+     call; A1 and V1 (half of each IMDCT product, mirrored in the
+     epilogue) with a +0.0 and a -0.0 input row whose outputs must all be
+     +0.0, bit for bit against their dense twins (A1 long, with and without
+     its prologue, and short, V1 n = 2048; the other V1 sizes reported),
+     beside cuBLAS on the dense and on the half product, with both bounds
+     and the tile's registers, spills and blocks per SM; A2 bit for bit
+     against ``native.aac_dequant_host``, A3 against the reference's
+     sequential ``window_ola_chain``; V1 at both ends of the Vorbis block
+     sizes (64 and 8192); L1 for Layer I and II, chained over
      calls (Layer I chunks of 1 and 2 frames included) against one call,
      and against the reference's numpy polyphase; V2 vorbis_lap bit for bit
      at [16384, 2048] and [4096, 64]; P1 bit for bit at [16384, 16384] for
@@ -473,6 +479,22 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def enqueue_ms(fn, reps: int) -> float:
+    """Mean host milliseconds per call to enqueue ``fn`` (no sync inside
+    the loop): where it nears ``cuda_ms``, the host's launch cost, not the
+    kernel, sets the measured time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def bound(nbytes: float, macs: float) -> dict:
     """The least time the card could take for work that moves ``nbytes``
     (each input read once, each output written once) and does ``macs``
@@ -503,11 +525,16 @@ def work_mp3_synth(G: int, C: int):
             G * C * 1056 * 576.0)
 
 
-def work_aac_imdct(L: int, n: int, prologue: bool):
-    nbytes = L * n * 4 + 2 * n * n * 4 + L * 2 * n * 4
+# A1 and V1 compute half of the dense IMDCT product and mirror the rest
+# (simt_gemm.cuh): their work is the half product's, n x n multiply-adds a
+# row from n rows of the matrix; dense=True counts the dense product's, for
+# comparison with a kernel that computes all of it.
+def work_aac_imdct(L: int, n: int, prologue: bool, dense: bool = False):
+    rows = 2 * n if dense else n
+    nbytes = L * n * 4 + rows * n * 4 + L * 2 * n * 4
     if prologue:
         nbytes += L * n * 2 + L * 64 * 4 + L * 4 + (1024 + 8192) * 4
-    return nbytes, L * 2.0 * n * n
+    return nbytes, float(L) * rows * n
 
 
 def work_aac_dequant(L: int):
@@ -518,8 +545,10 @@ def work_aac_ola(L: int):
     return L * 2048 * 4 + L * 1024 * 4 + L * 13 + 2 * 4 * 2 * 1024 * 4, 0.0
 
 
-def work_vorbis_imdct(L: int, n: int):
-    return L * n // 2 * 4 + n * n // 2 * 4 + L * n * 4, L * n * n / 2.0
+def work_vorbis_imdct(L: int, n: int, dense: bool = False):
+    k = n // 2
+    rows = n if dense else k
+    return L * k * 4 + rows * k * 4 + L * n * 4, float(L) * rows * k
 
 
 def work_mpa_l12_synth(F: int, C: int, T: int):
@@ -724,6 +753,60 @@ def _bits_equal(a, b) -> bool:
         a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def _zeros_positive(y) -> bool:
+    """Every zero of ``y`` is +0.0 (sign bit clear)."""
+    import torch
+
+    return not bool(torch.signbit(y[y == 0]).any())
+
+
+# The per-case times of A1 and V1, in this order.
+IMDCT_CASE_FIELDS = ("ms", "plain_ms", "library_ms", "library_half_ms",
+                     "bound_ms", "dense_bound_ms", "enqueue_ms")
+
+
+def _imdct_case(kernel, plain, x, m, work, work_dense) -> tuple:
+    """A1 or V1 at one shape: the kernel, its twin, cuBLAS fp32 on the
+    dense product (the reference's function) and on the half product that
+    the kernel computes (``m``'s rows K/2 .. 3K/2 - 1), both bounds, and
+    the host's time to enqueue one kernel call."""
+    import torch
+
+    K = x.shape[1]
+    m_t, half_t = m.t(), m[K // 2: K // 2 + K].t()
+    return (cuda_ms(kernel, 10), cuda_ms(plain, 10),
+            cuda_ms(lambda: torch.matmul(x, m_t), 10),
+            cuda_ms(lambda: torch.matmul(x, half_t), 10),
+            bound(*work)["bound_ms"], bound(*work_dense)["bound_ms"],
+            enqueue_ms(kernel, 20))
+
+
+def _tile_attributes() -> dict:
+    """Registers a thread, local-memory (spill) bytes a thread and
+    resident blocks an SM of A1 with and without its prologue and of V1,
+    from the CUDA runtime (cudaFuncGetAttributes, the occupancy query)."""
+    import ctypes
+
+    from symphonia_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    out = {}
+    for name, fn, args in (
+            ("aac_imdct_prologue", lib.aac_imdct_attributes, (1,)),
+            ("aac_imdct", lib.aac_imdct_attributes, (0,)),
+            ("vorbis_imdct", lib.vorbis_imdct_attributes, ())):
+        vals = (ctypes.c_int * 3)()
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(
+            ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _build.check(f"{name} attributes", fn(*args, vals))
+        out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                             vals))
+        if out[name]["local_bytes"]:
+            raise AssertionError(f"{name}: ptxas spilled ({out[name]})")
+    return out
+
+
 def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
     """A1-A3 against their twins on the card at the main path's shapes."""
     import torch
@@ -756,15 +839,26 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
     deq = (rng.random(L) >= 0.8).astype(np.int32)
     qbuf[deq != 0] = 8191
     scales[deq != 0] = 3e38
+    # Rows 1 and 2 give exact zeros: row 1 is +0.0 (with the prologue a
+    # handoff row of negative quants in bands of scale 0, which dequantize
+    # to +0.0), row 2 is -0.0, whose products are zeros of both signs.
+    coeffs[1], coeffs[2] = 0.0, -0.0
+    deq[1], qbuf[1], scales[1] = 0, -5, 0.0
+    deq[2] = 1
     x = t(coeffs)
     quant = dense.quant(t(qbuf), t(scales), t(deq), bands_long)
-    xs = t((rng.standard_normal((S, 128)) * 0.1).astype(np.float32))
-    out, errs = {}, {}
+    short = (rng.standard_normal((S, 128)) * 0.1).astype(np.float32)
+    short[1], short[2] = 0.0, -0.0
+    xs = t(short)
+    out, errs, bits = {}, {}, {}
 
     # A1: long with the prologue, long without, short. Bar: 1e-5 of the
     # larger of 1 and the twin's peak (escape quants push outputs far
     # above the builder streams' ~0.12; sums of 1024 fp32 terms in another
-    # order differ in proportion to the output).
+    # order differ in proportion to the output). Every zero output must be
+    # +0.0 (the mirror writes 0 - z), and the mirrored half product must
+    # equal the dense twin (cuBLAS) bit for bit: the AAC matrices satisfy
+    # the mirror identity exactly.
     a1 = {"long_prologue": (x, dense.imdct_long, quant),
           "long": (x, dense.imdct_long, None),
           "short": (xs, dense.imdct_short, None)}
@@ -779,23 +873,28 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         bar = 1e-5 * max(1.0, float(ref.abs().max()))
         if err > bar:
             raise AssertionError(f"aac_imdct {case}: {err} > {bar}")
+        if not (_zeros_positive(got) and bool((got[1:3] == 0).all())):
+            raise AssertionError(f"aac_imdct {case}: a zero row's outputs "
+                                 "are not all +0.0")
+        bits[f"aac_imdct_{case}"] = _bits_equal(got, ref)
+        if not bits[f"aac_imdct_{case}"]:
+            raise AssertionError(f"aac_imdct {case}: not bit-equal to its "
+                                 "dense twin")
         errs[f"aac_imdct_{case}"] = err
-        # The library call: cuBLAS fp32 on the bare product (no dequant).
-        m_t = args[1].t()
-        a1_ms[case] = (
-            cuda_ms(lambda: ad.aac_imdct(*args), 10),
-            cuda_ms(lambda: ad.aac_imdct_plain(*args), 10),
-            cuda_ms(lambda: torch.matmul(args[0], m_t), 10),
-            bound(*work_aac_imdct(*args[0].shape,
-                                  case == "long_prologue"))["bound_ms"])
+        a1_ms[case] = _imdct_case(
+            lambda: ad.aac_imdct(*args), lambda: ad.aac_imdct_plain(*args),
+            args[0], args[1],
+            work_aac_imdct(*args[0].shape, case == "long_prologue"),
+            work_aac_imdct(*args[0].shape, case == "long_prologue",
+                           dense=True))
     out["aac_imdct"] = dict(
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("aac_imdct")),
-        shape=[L, 1024], ms=a1_ms["long_prologue"][0],
-        plain_ms=a1_ms["long_prologue"][1],
-        library_ms=a1_ms["long_prologue"][2],
+        shape=[L, 1024],
+        **dict(zip(IMDCT_CASE_FIELDS[:4], a1_ms["long_prologue"][:4])),
         **bound(*work_aac_imdct(L, 1024, True)),
-        ms_by_case=_by_case(a1_ms))
+        dense_bound_ms=a1_ms["long_prologue"][5],
+        ms_by_case_fields=IMDCT_CASE_FIELDS, ms_by_case=_by_case(a1_ms))
 
     # A2: bit for bit with its twin and with the host twin of the device
     # dequantization (native.aac_dequant_host).
@@ -858,7 +957,8 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
             pcm, *lanes, *dense.ola_tables), 5))
     print("phase 2 aac kernels vs twins:", json.dumps(
         {**_rounded(out),
-         **errs, "aac_ola_vs_window_ola_chain": "equal"}), flush=True)
+         **errs, "bits_equal_twin": bits, "zero_outputs_positive": True,
+         "aac_ola_vs_window_ola_chain": "equal"}), flush=True)
     return out
 
 
@@ -878,13 +978,19 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
     rng = np.random.default_rng(SEED + 2)
     out, errs = {}, {}
 
-    # V1: spectra at the tamed builder streams' scale (|x| < 1e3). Bar: the
-    # Vorbis bar, 1e-6 of the larger of 1 and the twin's peak.
+    # V1: spectra at the tamed builder streams' scale (|x| < 1e3), rows 1
+    # and 2 +0.0 and -0.0. Bar: the Vorbis bar, 1e-6 of the larger of 1 and
+    # the twin's peak; every zero output +0.0. Bit for bit with the dense
+    # twin where the matrix satisfies the mirror identity exactly (n <=
+    # 4096; asserted at 2048, the main path's size); at 8192 1618 entries
+    # miss it by one ulp, and the bits are reported, not asserted.
     dense = vd.VorbisDense({}, dev)
-    v1_ms = {}
+    v1_ms, bits = {}, {}
     for n, lanes in ((2048, L), (256, L), (64, 4096), (8192, 2048)):
-        x = torch.from_numpy((rng.standard_normal((lanes, n // 2)) * 100.0)
-                             .astype(np.float32)).to(dev)
+        spec = (rng.standard_normal((lanes, n // 2)) * 100.0).astype(
+            np.float32)
+        spec[1], spec[2] = 0.0, -0.0
+        x = torch.from_numpy(spec).to(dev)
         m = dense.matrix(n)
         got = vd.vorbis_imdct(x, m)
         ref = vd.vorbis_imdct_plain(x, m)
@@ -895,24 +1001,25 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         bar = 1e-6 * max(1.0, float(ref.abs().max()))
         if err > bar:
             raise AssertionError(f"vorbis_imdct n={n}: {err} > {bar}")
+        if not (_zeros_positive(got) and bool((got[1:3] == 0).all())):
+            raise AssertionError(f"vorbis_imdct n={n}: a zero row's outputs "
+                                 "are not all +0.0")
+        bits[f"vorbis_imdct_{n}"] = _bits_equal(got, ref)
+        if n == 2048 and not bits[f"vorbis_imdct_{n}"]:
+            raise AssertionError("vorbis_imdct n=2048: not bit-equal to its "
+                                 "dense twin")
         errs[f"vorbis_imdct_{n}"] = err
-        case_t = m.t()
-        v1_ms[f"{lanes}x{n // 2}->{n}"] = (
-            cuda_ms(lambda: vd.vorbis_imdct(x, m), 10),
-            cuda_ms(lambda: vd.vorbis_imdct_plain(x, m), 10),
-            cuda_ms(lambda: torch.matmul(x, case_t), 10),
-            bound(*work_vorbis_imdct(lanes, n))["bound_ms"])
-    main = f"{L}x1024->2048"
-    x = torch.from_numpy((rng.standard_normal((L, 1024)) * 100.0)
-                         .astype(np.float32)).to(dev)
-    m_t = dense.matrix(2048).t()
+        v1_ms[f"{lanes}x{n // 2}->{n}"] = _imdct_case(
+            lambda: vd.vorbis_imdct(x, m), lambda: vd.vorbis_imdct_plain(x, m),
+            x, m, work_vorbis_imdct(lanes, n),
+            work_vorbis_imdct(lanes, n, dense=True))
+    main = v1_ms[f"{L}x1024->2048"]
     out["vorbis_imdct"] = dict(
         max_abs_err=max(v for k, v in errs.items()
                         if k.startswith("vorbis")),
-        shape=[L, 1024], ms=v1_ms[main][0], plain_ms=v1_ms[main][1],
-        library_ms=cuda_ms(lambda: torch.matmul(x, m_t), 10),
-        **bound(*work_vorbis_imdct(L, 2048)),
-        ms_by_case=_by_case(v1_ms))
+        shape=[L, 1024], **dict(zip(IMDCT_CASE_FIELDS[:4], main[:4])),
+        **bound(*work_vorbis_imdct(L, 2048)), dense_bound_ms=main[5],
+        ms_by_case_fields=IMDCT_CASE_FIELDS, ms_by_case=_by_case(v1_ms))
 
     # L1 at F frames of C = 2 channels, subband samples at x0.1 with a
     # carried tail; bar 2e-5 (the reference's).
@@ -992,7 +1099,8 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         ms_by_case=_by_case(v2_ms))
     print("phase 2 vorbis and layer I/II kernels vs twins:", json.dumps(
         {**_rounded(out),
-         **errs}), flush=True)
+         **errs, "bits_equal_twin": bits, "zero_outputs_positive": True,
+         "imdct_tile": _tile_attributes()}), flush=True)
     return out
 
 
@@ -1423,7 +1531,8 @@ def phase_rice_bench() -> dict:
 
 def _step_bound(host, size) -> dict:
     """The entry step's bound: the sum of its stages' bounds (they run one
-    after another), from this run's inputs."""
+    after another), from this run's inputs; A1 and V1 at their half
+    products, and the sum with their dense products beside it."""
     F, N, G, A, V, n1 = (size[k] for k in ("F", "N", "G", "A", "V", "n1"))
     n_short = int((host[13] == 2).sum())
     stages = {
@@ -1437,8 +1546,15 @@ def _step_bound(host, size) -> dict:
         "vorbis_imdct": work_vorbis_imdct(V, n1),
         "vorbis_lap": work_vorbis_lap(V, n1),
     }
+    dense = dict(stages,
+                 aac_imdct_long=work_aac_imdct(A - n_short, 1024, True, True),
+                 aac_imdct_short=work_aac_imdct(8 * n_short, 128, False,
+                                                True),
+                 vorbis_imdct=work_vorbis_imdct(V, n1, True))
     by_stage = {k: bound(*w) for k, w in stages.items()}
     return {"bound_ms": sum(b["bound_ms"] for b in by_stage.values()),
+            "dense_bound_ms": sum(bound(*w)["bound_ms"]
+                                  for w in dense.values()),
             "bound_by_stage": {k: [round(b["bound_ms"], 4), b["bound_by"]]
                                for k, b in by_stage.items()}}
 
@@ -1564,7 +1680,11 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"], "shape": k["shape"]})
+                     "library_ms": k["library_ms"], "shape": k["shape"],
+                     # A1 and V1: cuBLAS on their half product, and the
+                     # dense product's bound.
+                     **{f: k[f] for f in ("library_half_ms",
+                                          "dense_bound_ms") if f in k}})
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,17 @@ JAX. The dense decode math runs on an explicit device through kernels
 written by hand for NVIDIA Hopper (``csrc/*.cu``, built with nvcc on first
 use) or, on CPU tensors, through their plain PyTorch twins.
 
-Ported so far: FLAC, MPEG audio Layers I, II and III, AAC-LC and Ogg
-Vorbis through :mod:`.batch` (``decode_bytes``, ``decode_many``,
-``decode_file``), and the combined four-codec decode step of the
-reference's driver entry point through :mod:`.entry`.
+Ported so far, on one card: FLAC, MPEG audio Layers I, II and III, AAC-LC
+and Ogg Vorbis through :mod:`.batch`'s batch decoders (``decode_bytes``,
+``decode_many``, ``decode_file``); every other stream those functions take
+(PCM in WAV, AIFF, CAF and MP4, ADPCM, ALAC, FLAC in Matroska, ...)
+through the reference's per-packet loop on the host, counted in
+``batch.packet_routes``; the combined four-codec decode step of the
+reference's driver entry point through :mod:`.entry`; and the last two TPU
+programs, K12 (the PCM batch unpack, ``ops.pcm.decode_pcm_batch``) and K13
+(the device Rice decode, ``ops.rice_device.rice_decode_lanes`` and
+``tools/bench_rice_device.py``). The multi-card form of the entry step is
+not ported yet.
 
 Facade (as the reference's, symphonia/src/lib.rs): lazily constructed
 global ``Probe`` and ``CodecRegistry`` with every enabled format and codec

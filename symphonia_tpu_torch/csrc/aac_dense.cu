@@ -5,20 +5,32 @@
 // prologue on, and _imdct_jax (:112, K7) with it off:
 //   Y[L, 2n] = X[L, n] . M^T,  M the [2n, n] scaled IMDCT matrix,
 // for n = 1024 (long-window frames, one row each) and n = 128 (the eight
-// short windows of an EIGHT_SHORT frame, one row each). With the prologue
-// on (n = 1024), the A-tile load of a row r with deq[r] == 0 builds
+// short windows of an EIGHT_SHORT frame, one row each). It computes half
+// of that product, Z = X . M[n/2 : 3n/2]^T, on simt_gemm.cuh's tile (shared
+// with V1 vorbis_imdct) and writes the other half in the tile's mirrored
+// epilogue: y[n/2 + j] = Z[j], y[n/2 - 1 - j] = 0 - Z[j] (j < n/2) and
+// y[5n/2 - 1 - j] = Z[j] (j >= n/2). Both AAC matrices satisfy that mirror
+// exactly, so A1 equals the dense product bit for bit, signs of zero
+// included (simt_gemm.cuh says why the negation is 0 - z).
+// With the prologue on (n = 1024), a row r with deq[r] == 0 gets
 //   X[r, k] = +-(pow43[min(|q|, 8191)] * scales[r, sfb_map[k]])
-// from q = qbuf[r, k]; every other row reads X itself. The choice is made
-// per row, never by multiplying with a mask: rows with deq != 0 carry stale
-// qbuf and scales whose product can overflow, and 0 * inf is NaN.
-// What bounds A1: arithmetic, 2.1M multiply-adds per long row against 4 KB
-// of input (the matrix, 8 MB, stays in L2). The reference's bar (1e-5 on
-// outputs near 0.12) needs true fp32, which the tensor cores do not offer
-// (TF32 keeps ~10 mantissa bits), so A1 is a SIMT GEMM as M2 is: the
-// 64 x 128 tile of simt_gemm.cuh (shared with V1 vorbis_imdct), 32-deep K
-// slabs staged transposed in odd-strided (conflict-free) shared memory, a
-// 4 x 8 register tile per thread. The prologue gathers from the 32 KiB
-// pow43 table and the sfb map, both staged in shared memory once per block.
+// from q = qbuf[r, k]; every other row is copied from X by cp.async. The
+// choice is made per row, never by multiplying with a mask: rows with deq
+// != 0 carry stale qbuf and scales whose product can overflow, and 0 * inf
+// is NaN. A handoff row's quants for the next slab are copied by cp.async
+// with the next slab's operands, before the current slab's fmaf, and
+// dequantized into the next stage after them, so their latency hides
+// behind the product.
+// What bounds A1: arithmetic, 1.05M multiply-adds per long row (half the
+// dense 2.1M) against 4 KB of input and 8 KB of output (the half matrix, 4
+// MB, stays in L2). The reference's bar (1e-5 on outputs near 0.12) needs
+// true fp32, which the tensor cores do not offer (TF32 keeps ~10 mantissa
+// bits), so A1 is a SIMT GEMM. The prologue's dequantization repeats once
+// per 128-column tile of Z: 8 times at n = 1024 (16 times on the dense
+// product). It gathers from the 32 KiB pow43 table and the sfb map, staged
+// in shared memory once per block beside a two-stage ring and 8 KB of
+// quants (108 KB a block); without the prologue the ring has three stages
+// (96 KB). Two blocks fit on an SM either way.
 //
 // A2 aac_dequant replaces _dequant_jax (:51, K9): the prologue alone,
 // written out as [L, 1024] coefficients. It is the same device function
@@ -73,33 +85,63 @@ using simt_gemm::kBK;
 using simt_gemm::kBM;
 using simt_gemm::kBN;
 using simt_gemm::kThreads;
-constexpr int kSmemPlain = simt_gemm::kSlabFloats * 4;
-constexpr int kSmemDeq = kSmemPlain + kPow43 * 4 + kLong * 4;
+constexpr int kStagesPlain = 3;
+constexpr int kStagesDeq = 2;  // the tables and quants take a stage's room
+constexpr int kSmemPlain = simt_gemm::smem_bytes(kStagesPlain);
+// The ring, then pow43, sfb_map and four 8-byte quant slots a thread.
+constexpr int kSmemDeq = simt_gemm::smem_bytes(kStagesDeq) + kPow43 * 4 +
+                         kLong * 4 + 4 * kThreads * 8;
 
-// The prologue's A rows: a handoff row (deq == 0) is dequantized from its
-// quants while it loads, any other row is read from X.
+// The prologue's A slab: a handoff row (deq == 0) is dequantized from its
+// quants, any other row is copied from X. start() copies the X rows, and
+// the handoff rows' quants into this thread's own slots of a small shared
+// buffer, by cp.async; finish(), called after the current slab's fmaf,
+// waits for them, gathers their scales and dequantizes them into the
+// stage. Nothing of the prologue stays in registers across the fmaf: at
+// the 128 registers that two blocks an SM leave a thread, even the eight
+// of four prefetched quants made ptxas spill inside the product.
 struct DequantA {
-  const float* __restrict__ X;
+  simt_gemm::SlabCopy x;
   const int16_t* __restrict__ qbuf;
   const float* __restrict__ scales;
-  const int32_t* sfb;   // shared memory
-  const float* pow43;   // shared memory
-  bool handoff[2];      // per load slot
-  __device__ __forceinline__ float4 operator()(int s, int64_t row,
-                                               int k) const {
-    if (!handoff[s])
-      return *reinterpret_cast<const float4*>(X + row * kLong + k);
-    const short4 q = *reinterpret_cast<const short4*>(qbuf + row * kLong + k);
-    const float* sc = scales + row * kSfbs;
-    return make_float4(dequant_one(q.x, sc[sfb[k + 0]], pow43),
-                       dequant_one(q.y, sc[sfb[k + 1]], pow43),
-                       dequant_one(q.z, sc[sfb[k + 2]], pow43),
-                       dequant_one(q.w, sc[sfb[k + 3]], pow43));
+  const int32_t* sfb;              // shared memory
+  const float* pow43;              // shared memory
+  short4* quants;                  // shared memory: slot s at [s * kThreads]
+  int r0;                          // slot 0's row; slot s is row r0 + 32 s
+  unsigned handoff;                // bit s: slot s's row hands off
+
+  __device__ __forceinline__ void start(float* tile, int k0) {
+    const int k = k0 + 4 * (threadIdx.x & 7);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (handoff >> s & 1u)
+        simt_gemm::cp_async8(
+            quants + s * kThreads,
+            qbuf + static_cast<int64_t>(r0 + 32 * s) * kLong + k);
+      else
+        x.start_one(tile, k0, s);
+    }
+  }
+
+  __device__ __forceinline__ void finish(float* tile, int k0) {
+    simt_gemm::cp_async_wait<0>();  // this thread's quants have landed
+    const int k = k0 + 4 * (threadIdx.x & 7);
+    const int b0 = sfb[k], b1 = sfb[k + 1], b2 = sfb[k + 2], b3 = sfb[k + 3];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (!(handoff >> s & 1u)) continue;
+      const short4 q = quants[s * kThreads];
+      const float* r = scales + static_cast<int64_t>(r0 + 32 * s) * kSfbs;
+      *reinterpret_cast<float4*>(x.slot_dst(tile, s)) = make_float4(
+          dequant_one(q.x, r[b0], pow43), dequant_one(q.y, r[b1], pow43),
+          dequant_one(q.z, r[b2], pow43), dequant_one(q.w, r[b3], pow43));
+    }
   }
 };
 
+// Two blocks an SM: ptxas keeps a thread within 128 registers.
 template <bool kDeq>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
                  const int16_t* __restrict__ qbuf,
                  const float* __restrict__ scales,
@@ -107,29 +149,36 @@ aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
                  const int32_t* __restrict__ sfb_map,
                  const float* __restrict__ pow43_g, float* __restrict__ Y,
                  int L, int n) {
-  extern __shared__ float smem[];
-  float* As = smem;
-  float* Bs = As + kBK * simt_gemm::kAPad;
+  extern __shared__ __align__(16) float smem[];
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
   const int col0 = blockIdx.y * kBN;
-  int64_t rows[2];
-  simt_gemm::a_rows(row0, L, rows);
-  float acc[4][8] = {};
+  const simt_gemm::Thread th;
+  // B: rows col0.. of the half matrix M[n/2 : 3n/2].
+  const simt_gemm::SlabCopy m(M + static_cast<int64_t>(n / 2) * n, n, col0,
+                              n - col0);
+  const simt_gemm::SlabCopy x(X, n, row0, L - row0);
+  float acc[8][8] = {};
   if constexpr (kDeq) {
-    float* pow43 = Bs + kBK * simt_gemm::kBPad;
+    float* pow43 = smem + simt_gemm::smem_bytes(kStagesDeq) / 4;
     int32_t* sfb = reinterpret_cast<int32_t*>(pow43 + kPow43);
-    // Read after the first __syncthreads of the K loop.
+    short4* quants = reinterpret_cast<short4*>(sfb + kLong);
     for (int i = threadIdx.x; i < kPow43; i += kThreads) pow43[i] = pow43_g[i];
     for (int i = threadIdx.x; i < kLong; i += kThreads) sfb[i] = sfb_map[i];
-    const DequantA load{X, qbuf, scales, sfb, pow43,
-                        {rows[0] >= 0 && deq[rows[0]] == 0,
-                         rows[1] >= 0 && deq[rows[1]] == 0}};
-    simt_gemm::tile_product(load, rows, M, n, 2 * n, col0, As, Bs, acc);
+    __syncthreads();  // the first slabs dequantize before the K loop
+    // This thread's copy slots s: rows r0 + 32 s (L < 2^31 rows).
+    const int r0 = static_cast<int>(row0) + (threadIdx.x >> 3);
+    unsigned handoff = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (s < x.slots && deq[r0 + 32 * s] == 0) handoff |= 1u << s;
+    DequantA load{x, qbuf, scales, sfb, pow43, quants + threadIdx.x, r0,
+                  handoff};
+    simt_gemm::tile_product<kStagesDeq>(load, m, n, smem, th, acc);
   } else {
-    simt_gemm::tile_product(simt_gemm::RowsA{X, n}, rows, M, n, 2 * n, col0,
-                            As, Bs, acc);
+    simt_gemm::RowsA load{x};
+    simt_gemm::tile_product<kStagesPlain>(load, m, n, smem, th, acc);
   }
-  simt_gemm::store_tile(Y, acc, row0, L, col0, 2 * n);
+  simt_gemm::store_mirrored(Y, acc, th, row0, L, col0, n);
 }
 
 // ----- A2 -------------------------------------------------------------
@@ -222,8 +271,9 @@ int launch_error() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace
 
-// Y [L, 2n] = X [L, n] . M^T; qbuf == nullptr turns the dequant prologue
-// off (then scales, deq, sfb_map and pow43 are unused). n % 64 == 0, and
+// Y [L, 2n] = X [L, n] . M^T with M the full [2n, n] matrix (A1 reads its
+// rows n/2 .. 3n/2 - 1); qbuf == nullptr turns the dequant prologue off
+// (then scales, deq, sfb_map and pow43 are unused). n % 32 == 0, and
 // n == 1024 with the prologue.
 extern "C" int aac_imdct_launch(const void* X, const void* M,
                                 const void* qbuf, const void* scales,
@@ -231,16 +281,13 @@ extern "C" int aac_imdct_launch(const void* X, const void* M,
                                 const void* pow43, void* Y, int L, int n,
                                 void* stream) {
   if (L <= 0) return launch_error();
-  if (n <= 0 || n % kBK != 0 || (2 * n) % kBN != 0 ||
-      (qbuf != nullptr && n != kLong))
+  if (n <= 0 || n % kBK != 0 || (qbuf != nullptr && n != kLong))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((L + kBM - 1) / kBM), 2 * n / kBN);
+  const dim3 grid(static_cast<unsigned>((L + kBM - 1) / kBM),
+                  static_cast<unsigned>((n + kBN - 1) / kBN));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qbuf != nullptr) {
-    // Above 48 KB, dynamic shared memory needs the opt-in.
-    const cudaError_t e = cudaFuncSetAttribute(
-        aac_imdct_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemDeq);
+    const cudaError_t e = simt_gemm::opt_in(aac_imdct_kernel<true>, kSmemDeq);
     if (e != cudaSuccess) return static_cast<int>(e);
     aac_imdct_kernel<true><<<grid, kThreads, kSmemDeq, st>>>(
         static_cast<const float*>(X), static_cast<const float*>(M),
@@ -249,11 +296,23 @@ extern "C" int aac_imdct_launch(const void* X, const void* M,
         static_cast<const int32_t*>(sfb_map),
         static_cast<const float*>(pow43), static_cast<float*>(Y), L, n);
   } else {
+    const cudaError_t e =
+        simt_gemm::opt_in(aac_imdct_kernel<false>, kSmemPlain);
+    if (e != cudaSuccess) return static_cast<int>(e);
     aac_imdct_kernel<false><<<grid, kThreads, kSmemPlain, st>>>(
         static_cast<const float*>(X), static_cast<const float*>(M), nullptr,
         nullptr, nullptr, nullptr, nullptr, static_cast<float*>(Y), L, n);
   }
   return launch_error();
+}
+
+// A1's registers, local bytes and blocks per SM (simt_gemm::attributes),
+// with (prologue != 0) or without its dequant prologue: out[3].
+extern "C" int aac_imdct_attributes(int prologue, int* out) {
+  return prologue ? simt_gemm::attributes(aac_imdct_kernel<true>, kSmemDeq,
+                                          out)
+                  : simt_gemm::attributes(aac_imdct_kernel<false>,
+                                          kSmemPlain, out);
 }
 
 extern "C" int aac_dequant_launch(const void* coeffs, const void* qbuf,

@@ -7,13 +7,19 @@ a plain PyTorch twin beside it.
   polyphase product fused with the synthesis overlap-add (kernel M2), for
   Layer I/II frames too (kernel L1, M2's body).
 * ``aac_dense`` — AAC-LC IMDCTs in fp32 with the handoff dequantization as
-  their prologue (kernel A1), that dequantization alone (A2), and the
-  window/overlap-add over many sequences in one launch (A3).
+  their prologue (kernel A1: half of the product on a pipelined SIMT tile,
+  the other half mirrored in its epilogue), that dequantization alone
+  (A2), and the window/overlap-add over many sequences in one launch (A3).
 * ``vorbis_dense`` — Vorbis IMDCTs in fp32, one per block size (kernel V1,
-  A1's GEMM tile), and the equal-size lap of the combined decode step
-  (kernel V2).
+  A1's tile and mirrored epilogue), and the equal-size lap of the combined
+  decode step (kernel V2).
+* ``pcm`` — PCM bytes -> samples: the numpy oracle ``decode_pcm_np`` of the
+  per-packet decoders, and the batch unpack of padded packets for 18
+  codecs (kernel P1 ``pcm_unpack``, behind ``decode_pcm_batch``).
+* ``rice_device`` — FLAC Rice residual decode over independent lane
+  cursors (kernel R1 ``rice_decode``, behind ``rice_decode_lanes``).
 * ``_build`` — nvcc build, ctypes loading and launch counts.
 
-Host-only modules, numpy: ``imdct_host`` (the per-packet decoders' fast
-IMDCT) and ``pcm`` (PCM bytes -> samples), copies of the reference's.
+Host-only module, numpy: ``imdct_host`` (the per-packet decoders' fast
+IMDCT), a copy of the reference's.
 """

@@ -10,7 +10,11 @@ Three kernels (``csrc/aac_dense.cu``):
 
 * ``aac_imdct`` (A1): the IMDCT product in true fp32, with an optional
   prologue that dequantizes the entropy stage's handoff lanes (``deq ==
-  0``) while loading them (K6 with it, K7 without);
+  0``) while loading them (K6 with it, K7 without). It takes the full
+  ``[2n, n]`` matrix, computes the product with its rows ``n/2 .. 3n/2 -
+  1`` and writes the other half of the output mirrored (half of each
+  matrix's rows are exact negated copies of the others), bit for bit
+  equal to the dense product; its twin stays the dense product;
 * ``aac_dequant`` (A2): that prologue alone (K9), behind
   :func:`dequant_select`;
 * ``aac_ola`` (A3): the window/overlap-add (K8) over lanes of many
@@ -236,7 +240,9 @@ def _check_quant(quant: Quant, L: int) -> Quant:
 
 def aac_imdct(x, m, quant: Optional[Quant] = None):
     """A1 wrapper: ``x [L, n] f32 -> [L, 2n]`` with ``m [2n, n]``; ``quant``
-    turns the dequant prologue on (n = 1024)."""
+    turns the dequant prologue on (n = 1024). ``m`` is an IMDCT matrix
+    (``imdct_long``, ``imdct_short``): the kernel reads its rows ``n/2 ..
+    3n/2 - 1`` and mirrors the rest of the output."""
     L, n = x.shape
     if L == 0:
         raise ValueError("empty lane batch")

@@ -8,7 +8,11 @@ stitch between packets of a stream is the reference's numpy ``lap_stitch``,
 copied here (``symphonia_tpu/ops/vorbis_dense.py:53-81``).
 
 Two kernels (``csrc/vorbis_dense.cu``): ``vorbis_imdct`` (V1), the product
-in true fp32, and ``vorbis_lap`` (V2), the batched equal-size lap of the
+in true fp32 (it takes the full matrix, computes the product with its rows
+``n/4 .. 3n/4 - 1`` and writes the other half of the output mirrored: bit
+for bit the dense product for n <= 4096, within the Vorbis bar at 8192,
+where 1618 matrix entries miss the mirror by one ulp; the twin stays the
+dense product), and ``vorbis_lap`` (V2), the batched equal-size lap of the
 reference's combined decode step (``__graft_entry__.py:117-121``), which
 :mod:`..entry` runs. Each wrapper runs its plain PyTorch twin for CPU
 tensors and launches its kernel for CUDA tensors, or raises. The matrices
@@ -58,7 +62,9 @@ def vorbis_imdct_plain(x, m):
 
 
 def vorbis_imdct(x, m):
-    """V1 wrapper: ``x [L, n/2] f32 -> [L, n]`` with ``m [n, n/2]``."""
+    """V1 wrapper: ``x [L, n/2] f32 -> [L, n]`` with ``m [n, n/2]``, the
+    IMDCT matrix of block size n: the kernel reads its rows ``n/4 .. 3n/4
+    - 1`` and mirrors the rest of the output."""
     L, k = x.shape
     if L == 0:
         raise ValueError("empty lane batch")
