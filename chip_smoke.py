@@ -16,7 +16,12 @@ Phases (one line each; any failure raises and exits non-zero):
      +0.0, bit for bit against their dense twins (A1 long, with and without
      its prologue, and short, V1 n = 2048; the other V1 sizes reported),
      beside cuBLAS on the dense and on the half product, with both bounds
-     and the tile's registers, spills and blocks per SM; A2 bit for bit
+     and the tile's registers, spills and blocks per SM; M2 and L1 (the
+     factored polyphase synthesis) within 2e-5 of their twins and of the
+     numpy oracle, with the error relative to the peak, chained calls
+     within 1e-6 of one call (bit-equality reported), beside cuBLAS on the
+     reference's dense product, with the factored and the dense bound and
+     the kernel's registers, spills and blocks per SM; A2 bit for bit
      against ``native.aac_dequant_host``, A3 against the reference's
      sequential ``window_ola_chain``; V1 at both ends of the Vorbis block
      sizes (64 and 8192); L1 for Layer I and II, chained over
@@ -495,6 +500,30 @@ def enqueue_ms(fn, reps: int) -> float:
     return t
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call with the host's launch cost taken
+    out: ``reps`` calls captured in one CUDA graph, its replay timed with
+    CUDA events. Where ``cuda_ms`` nears ``enqueue_ms``, this is the
+    kernel's own time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes: float, macs: float) -> dict:
     """The least time the card could take for work that moves ``nbytes``
     (each input read once, each output written once) and does ``macs``
@@ -520,9 +549,28 @@ def work_mp3_hybrid(G: int, C: int):
     return 2 * G * C * 576 * 4 + G * C * 5 + G, G * C * 32 * 36 * 18.0
 
 
-def work_mp3_synth(G: int, C: int):
-    return (2 * G * C * 576 * 4 + 1056 * 576 * 4 + C * 480 * 4,
-            G * C * 1056 * 576.0)
+# M2 and L1 compute the factored polyphase synthesis (mp3_dense.cu): per
+# 32-sample slot, the matrixing's 32 folded rows (16 multiply-adds each, on
+# 16 sums or differences: 32 additions, counted as 16 multiply-adds), its
+# row 16 (32) and the 16-tap FIR (16 x 32), from N [64, 32] and W [16,
+# 32], with the carried tail read and the outgoing one written; the other
+# 31 rows of N are mirrored. dense=True counts the reference's product
+# with the combined matrix [(T + 15) * 32, 32T].
+SYNTH_MACS_PER_SLOT = 32 * 16 + 16 + 32 + 16 * 32
+
+
+def _work_synth(frames: int, C: int, T: int, dense: bool) -> tuple:
+    n = 32 * T
+    nbytes = 2 * frames * C * n * 4 + 2 * C * 480 * 4
+    if dense:
+        return nbytes + (n + 480) * n * 4, float(frames) * C * (n + 480) * n
+    return (nbytes + (64 + 16) * 32 * 4,
+            float(frames) * C * T * SYNTH_MACS_PER_SLOT)
+
+
+def work_mp3_synth(G: int, C: int, dense: bool = False):
+    nbytes, macs = _work_synth(G, C, 18, dense)
+    return nbytes + G, macs  # + the boundary mask
 
 
 # A1 and V1 compute half of the dense IMDCT product and mirror the rest
@@ -551,9 +599,8 @@ def work_vorbis_imdct(L: int, n: int, dense: bool = False):
     return L * k * 4 + rows * k * 4 + L * n * 4, float(L) * rows * k
 
 
-def work_mpa_l12_synth(F: int, C: int, T: int):
-    return (2 * F * C * 32 * T * 4 + 32 * (T + 15) * 32 * T * 4,
-            F * C * 32 * (T + 15) * 32.0 * T)
+def work_mpa_l12_synth(F: int, C: int, T: int, dense: bool = False):
+    return _work_synth(F, C, T, dense)
 
 
 def work_vorbis_lap(V: int, n1: int):
@@ -672,11 +719,15 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     S_ref, tail_ref = md.mp3_hybrid_plain(*hyb_args)
     e_m1 = max(float((S - S_ref).abs().max()),
                float((tail - tail_ref).abs().max()))
-    syn_args = (S, dense.polyphase, st0, boundary)
+    syn_args = (S, dense.matrixing, dense.window, st0, boundary)
     pcm, st = md.mp3_synth(*syn_args)
     pcm_ref, st_ref = md.mp3_synth_plain(*syn_args)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(pcm).all() and torch.isfinite(st).all()):
+        raise AssertionError("mp3_synth: not finite")
     e_m2 = max(float((pcm - pcm_ref).abs().max()),
                float((st - st_ref).abs().max()))
+    e_m2_rel = e_m2 / float(pcm_ref.abs().max())
     # The whole chain, kernels vs twins on the CPU, at the parity bar.
     chain = dense(xs, bt, mixed, ht0, st0, boundary=boundary)
     dense_cpu = md.Mp3Dense.from_numpy(md.reference_tables(), "cpu")
@@ -684,6 +735,15 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
                           boundary=boundary.cpu())
     e_chain = max(float((a.cpu() - b).abs().max())
                   for a, b in zip(chain, chain_cpu))
+    # M2 at the edges: one and three granules, a boundary at g = 0 (the
+    # carried tail unused) and mid-batch, against its twin.
+    for g_e, cuts in ((1, [0]), (3, [0, 2]), (9, [4])):
+        bd_e = torch.zeros(g_e, dtype=torch.bool, device=dev)
+        bd_e[cuts] = True
+        e_args = (S[:g_e].contiguous(), dense.matrixing, dense.window, st0,
+                  bd_e)
+        e_m2 = max([e_m2] + [float((a - b).abs().max()) for a, b in zip(
+            md.mp3_synth(*e_args), md.mp3_synth_plain(*e_args))])
     if max(e_m1, e_m2, e_chain) > 2e-5:
         raise AssertionError(f"mp3 kernels vs twins: M1 {e_m1} M2 {e_m2} "
                              f"chain {e_chain} > 2e-5")
@@ -692,24 +752,31 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     first = dense(xs[:h], bt[:h], mixed[:h], ht0, st0, boundary=boundary[:h])
     second = dense(xs[h:], bt[h:], mixed[h:], first[1], first[2],
                    boundary=boundary[h:])
-    e_chunks = max(float((torch.cat([first[0], second[0]]) - chain[0])
-                         .abs().max()),
+    joined = torch.cat([first[0], second[0]])
+    e_chunks = max(float((joined - chain[0]).abs().max()),
                    float((second[1] - chain[1]).abs().max()),
                    float((second[2] - chain[2]).abs().max()))
     if e_chunks > 1e-6:
         raise AssertionError(f"mp3 chained calls vs one call: {e_chunks}")
+    chunks_bits = (_bits_equal(joined, chain[0])
+                   and _bits_equal(second[2], chain[2]))
     out["mp3_hybrid"] = dict(
         max_abs_err=e_m1, shape=[G, C, 576], library_ms=None,
         **bound(*work_mp3_hybrid(G, C)),
         ms=cuda_ms(lambda: md.mp3_hybrid(*hyb_args), 20),
         plain_ms=cuda_ms(lambda: md.mp3_hybrid_plain(*hyb_args), 5))
-    poly_t = dense.polyphase.t()
+    # The library call: cuBLAS fp32 on the reference's dense product with
+    # the combined polyphase matrix (its time, not its overlap-add).
+    poly_t = torch.from_numpy(md._polyphase_combined_matrix()).to(dev).t()
     out["mp3_synth"] = dict(
-        max_abs_err=e_m2, shape=[G, C, 576],
+        max_abs_err=e_m2, max_rel_err=e_m2_rel, shape=[G, C, 576],
         library_ms=cuda_ms(lambda: torch.matmul(S, poly_t), 20),
         **bound(*work_mp3_synth(G, C)),
+        dense_bound_ms=bound(*work_mp3_synth(G, C, dense=True))["bound_ms"],
         ms=cuda_ms(lambda: md.mp3_synth(*syn_args), 20),
-        plain_ms=cuda_ms(lambda: md.mp3_synth_plain(*syn_args), 20))
+        plain_ms=cuda_ms(lambda: md.mp3_synth_plain(*syn_args), 20),
+        enqueue_ms=enqueue_ms(lambda: md.mp3_synth(*syn_args), 20),
+        graph_ms=graph_ms(lambda: md.mp3_synth(*syn_args), 20))
 
     # The reference's own oracle: the stateful numpy per-granule chain.
     g_small = 6
@@ -727,7 +794,8 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     print("phase 2 kernels vs twins:", json.dumps(
         {**_rounded(out),
          "mp3_chain_vs_cpu_twin": e_chain, "mp3_vs_numpy_oracle": e_oracle,
-         "mp3_chunks_vs_one_call": e_chunks}), flush=True)
+         "mp3_chunks_vs_one_call": e_chunks,
+         "mp3_chunks_bits_equal_one_call": chunks_bits}), flush=True)
     return out
 
 
@@ -781,20 +849,21 @@ def _imdct_case(kernel, plain, x, m, work, work_dense) -> tuple:
             enqueue_ms(kernel, 20))
 
 
-def _tile_attributes() -> dict:
-    """Registers a thread, local-memory (spill) bytes a thread and
-    resident blocks an SM of A1 with and without its prologue and of V1,
-    from the CUDA runtime (cudaFuncGetAttributes, the occupancy query)."""
+# The per-case times of L1, in this order.
+SYNTH_CASE_FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms",
+                     "dense_bound_ms", "enqueue_ms", "graph_ms")
+
+
+def _attributes(entries) -> dict:
+    """Registers a thread, local-memory (spill) bytes a thread and resident
+    blocks an SM of each (name, C function, arguments), from the CUDA
+    runtime (cudaFuncGetAttributes, the occupancy query); a spill fails."""
     import ctypes
 
     from symphonia_tpu_torch.ops import _build
 
-    lib = _build.lib()
     out = {}
-    for name, fn, args in (
-            ("aac_imdct_prologue", lib.aac_imdct_attributes, (1,)),
-            ("aac_imdct", lib.aac_imdct_attributes, (0,)),
-            ("vorbis_imdct", lib.vorbis_imdct_attributes, ())):
+    for name, fn, args in entries:
         vals = (ctypes.c_int * 3)()
         fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(
             ctypes.c_int)]
@@ -805,6 +874,25 @@ def _tile_attributes() -> dict:
         if out[name]["local_bytes"]:
             raise AssertionError(f"{name}: ptxas spilled ({out[name]})")
     return out
+
+
+def _synth_attributes() -> dict:
+    """M2's and L1's synthesis kernel at T = 18, 12 and 36."""
+    from symphonia_tpu_torch.ops import _build
+
+    fn = _build.lib().mp3_synth_attributes
+    return _attributes((f"T{T}", fn, (T,)) for T in (18, 12, 36))
+
+
+def _tile_attributes() -> dict:
+    """A1 with and without its prologue and V1 (the IMDCT tile)."""
+    from symphonia_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    return _attributes((
+        ("aac_imdct_prologue", lib.aac_imdct_attributes, (1,)),
+        ("aac_imdct", lib.aac_imdct_attributes, (0,)),
+        ("vorbis_imdct", lib.vorbis_imdct_attributes, ())))
 
 
 def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
@@ -1025,36 +1113,42 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
     # carried tail; bar 2e-5 (the reference's).
     C = 2
     l12 = md.L12Dense.from_numpy(md.l12_tables(), dev)
+    fac = (l12.matrixing, l12.window)
     l1_ms = {}
     for T in (36, 12):
         sb = torch.from_numpy((rng.standard_normal((F, C, 32, T)) * 0.1)
                               .astype(np.float32)).to(dev)
         t0 = torch.from_numpy((rng.standard_normal((C, 480)) * 0.1)
                               .astype(np.float32)).to(dev)
-        poly = getattr(l12, f"polyphase_{T}")
-        pcm, tail = md.mpa_l12_synth(sb, poly, t0)
-        pcm_ref, tail_ref = md.l12_synth_plain(sb, poly, t0)
+        pcm, tail = md.mpa_l12_synth(sb, *fac, t0)
+        pcm_ref, tail_ref = md.l12_synth_plain(sb, *fac, t0)
         torch.cuda.synchronize()
+        if not (torch.isfinite(pcm).all() and torch.isfinite(tail).all()):
+            raise AssertionError(f"mpa_l12_synth T={T}: not finite")
         err = max(float((pcm - pcm_ref).abs().max()),
                   float((tail - tail_ref).abs().max()))
         if err > 2e-5:
             raise AssertionError(f"mpa_l12_synth T={T}: {err} > 2e-5")
         errs[f"mpa_l12_synth_{T}"] = err
+        errs[f"mpa_l12_synth_{T}_rel"] = err / float(pcm_ref.abs().max())
         # Chained calls (Layer I: chunks of 1 and 2 frames first, where the
         # tail reaches past the chunk) against the one call above.
         cuts = [1, 3, F // 2] if T == 12 else [F // 2 + 3]
         parts, st, a = [], t0, 0
         for b in cuts + [F]:
-            p, st = md.mpa_l12_synth(sb[a:b], poly, st)
+            p, st = md.mpa_l12_synth(sb[a:b], *fac, st)
             parts.append(p)
             a = b
-        e_chain = max(float((torch.cat(parts) - pcm).abs().max()),
+        joined = torch.cat(parts)
+        e_chain = max(float((joined - pcm).abs().max()),
                       float((st - tail).abs().max()))
         if e_chain > 1e-6:
             raise AssertionError(f"mpa_l12_synth T={T} chained: {e_chain}")
         errs[f"mpa_l12_synth_{T}_chunks_vs_one_call"] = e_chain
+        bits[f"mpa_l12_synth_{T}_chunks_vs_one_call"] = (
+            _bits_equal(joined, pcm) and _bits_equal(st, tail))
         # The reference's numpy polyphase over six frames of channel 0.
-        small = md.mpa_l12_synth(sb[:6].contiguous(), poly, None)[0]
+        small = md.mpa_l12_synth(sb[:6].contiguous(), *fac, None)[0]
         expect = md.polyphase_response_np(np.concatenate(
             list(sb[:6, 0].cpu().numpy()), axis=1))[: 6 * 32 * T]
         e_np = float(np.abs(small[:, 0].reshape(-1).cpu().numpy()
@@ -1062,17 +1156,27 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
         if e_np > 2e-5:
             raise AssertionError(f"mpa_l12_synth T={T} vs numpy: {e_np}")
         errs[f"mpa_l12_synth_{T}_vs_numpy"] = e_np
-        sb2, poly_t = sb.reshape(F * C, 32 * T), poly.t()
-        l1_ms[f"T{T}"] = (cuda_ms(lambda: md.mpa_l12_synth(sb, poly, t0), 20),
-                          cuda_ms(lambda: md.l12_synth_plain(sb, poly, t0),
-                                  20),
-                          cuda_ms(lambda: torch.matmul(sb2, poly_t), 20),
-                          bound(*work_mpa_l12_synth(F, C, T))["bound_ms"])
+        # The library call: cuBLAS fp32 on the reference's dense product,
+        # the combined matrix's K axis in sb's order (k*T + t).
+        m = md._polyphase_combined_matrix(T)
+        poly_t = torch.from_numpy(np.ascontiguousarray(
+            m.reshape(-1, T, 32).transpose(0, 2, 1).reshape(m.shape))).to(
+                dev).t()
+        sb2 = sb.reshape(F * C, 32 * T)
+        l1_ms[f"T{T}"] = (
+            cuda_ms(lambda: md.mpa_l12_synth(sb, *fac, t0), 20),
+            cuda_ms(lambda: md.l12_synth_plain(sb, *fac, t0), 20),
+            cuda_ms(lambda: torch.matmul(sb2, poly_t), 20),
+            bound(*work_mpa_l12_synth(F, C, T))["bound_ms"],
+            bound(*work_mpa_l12_synth(F, C, T, dense=True))["bound_ms"],
+            enqueue_ms(lambda: md.mpa_l12_synth(sb, *fac, t0), 20),
+            graph_ms(lambda: md.mpa_l12_synth(sb, *fac, t0), 20))
     out["mpa_l12_synth"] = dict(
         max_abs_err=max(errs[f"mpa_l12_synth_{T}"] for T in (12, 36)),
         shape=[F, C, 32, 36], ms=l1_ms["T36"][0], plain_ms=l1_ms["T36"][1],
         library_ms=l1_ms["T36"][2], **bound(*work_mpa_l12_synth(F, C, 36)),
-        ms_by_case=_by_case(l1_ms))
+        dense_bound_ms=l1_ms["T36"][4], graph_ms=l1_ms["T36"][6],
+        ms_by_case_fields=SYNTH_CASE_FIELDS, ms_by_case=_by_case(l1_ms))
 
     # V2 on V1's output scale: bit for bit with its twin (each product and
     # the sum rounded once, in the reference's order), at the entry step's
@@ -1100,7 +1204,8 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
     print("phase 2 vorbis and layer I/II kernels vs twins:", json.dumps(
         {**_rounded(out),
          **errs, "bits_equal_twin": bits, "zero_outputs_positive": True,
-         "imdct_tile": _tile_attributes()}), flush=True)
+         "imdct_tile": _tile_attributes(),
+         "synth_kernel": _synth_attributes()}), flush=True)
     return out
 
 
@@ -1546,7 +1651,7 @@ def _step_bound(host, size) -> dict:
         "vorbis_imdct": work_vorbis_imdct(V, n1),
         "vorbis_lap": work_vorbis_lap(V, n1),
     }
-    dense = dict(stages,
+    dense = dict(stages, mp3_synth=work_mp3_synth(G, 2, dense=True),
                  aac_imdct_long=work_aac_imdct(A - n_short, 1024, True, True),
                  aac_imdct_short=work_aac_imdct(8 * n_short, 128, False,
                                                 True),
@@ -1681,10 +1786,11 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "shape": k["shape"],
-                     # A1 and V1: cuBLAS on their half product, and the
-                     # dense product's bound.
-                     **{f: k[f] for f in ("library_half_ms",
-                                          "dense_bound_ms") if f in k}})
+                     # A1 and V1: cuBLAS on their half product; A1, V1, M2
+                     # and L1: the dense product's bound; M2 and L1: the
+                     # device time with the host's launch cost out.
+                     **{f: k[f] for f in ("library_half_ms", "dense_bound_ms",
+                                          "graph_ms") if f in k}})
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -29,43 +29,69 @@
 // symphonia_tpu/ops/mp3_dense.py:273 l12_dense_batch_jax, K11) are one
 // body, synth_kernel<T>, for T subband samples per granule or frame: 18
 // (Layer III granules, M2), 12 (Layer I frames) and 36 (Layer II frames).
-// With n = 32 T, M the combined polyphase matrix [n + 480, n]
-// (_polyphase_combined_matrix(T), its K axis in the operand's order) and
-// rows r = g*C + c of the operand S [F*C, n], each frame's response is
-// S[r].M^T: its first n columns are the frame's own PCM, the last 480
-// overlap the next KS = ceil(480 / n) frames (1 for T = 18 and 36, 2 for
-// T = 12). So
-//   pcm[r, j] = S[r].M[j] + prev(g, j),  prev = term_1 + ... + term_KS
-//   term_k = S[r - kC].M[kn + j]  if 0 <= g - k < F (and kn + j < n + 480)
-//          = tail0[c, gn + j]     if g - k == -1 and gn + j < 480
-//          = 0                    otherwise,
-// where the carried tail0 stands in for all the frames before the call.
-// M2 also takes boundary [G]: term_1 is 0 where boundary[g] (a new stream
-// starts), and tail0 is not used where boundary[0]. The response's last 480
-// columns never reach device memory: the block that owns row r computes
-// each term_k itself, as a K pass over S[r - kC]. The outgoing tail comes
-// from KS virtual frames F.. F+KS-1 with no product of their own:
-//   tail_out[c, (g - F) n + j] = prev(g, j)  for (g - F) n + j < 480.
-// Every term comes from the same accumulator and loop whichever call
-// computes it, and prev sums the terms in one order, so a stream chained
-// over calls adds the very bits one call would. For Layer I (n = 384),
-// output columns 0-95 take three K passes and 96-383 take two; its tail
-// spans two virtual frames, and with F = 1 the carried tail's last 96
-// samples pass straight into the outgoing tail.
-// What bounds M2 and L1: arithmetic, about 608K (M2), 332K (Layer I) and
-// 1.9M (Layer II) multiply-adds per frame-channel against 128 T bytes of S
-// read and as many of pcm written; M (1.3-7.5 MB) stays in L2. The
-// reference's bar (2e-5) needs true fp32, which the tensor cores do not
-// offer (TF32 keeps ~10 mantissa bits), so this is a SIMT GEMM: a 64 x 96
-// output tile per 256-thread block (n is a multiple of 96 for all three
-// T), 32-deep K slabs of S and M staged in padded (conflict-free) shared
-// memory, a 4 x 6 register tile per thread and K pass. Layer I/II's S is
-// the bitstream stage's sb [F, C, 32, T] as it is (K index k*T + t), with
-// M's columns permuted to match on the host, so both operands load as
-// contiguous float4 rows and no transpose pass runs.
+// The reference multiplies each frame by its dense combined polyphase
+// matrix [(T + 15) * 32, 32T] (_polyphase_combined_matrix(T)), shaped for
+// the TPU's matrix unit. That matrix is block-banded with repeating
+// blocks, so the kernel computes the same function in factored form, as
+// the reference's host oracle (polyphase_response_np) does, over the
+// stream of slots (one slot = 32 subband samples) of one channel:
+//   matrixing  V[x][q] = sum_k N[q][k] S[x][k]       (N [64, 32])
+//   FIR        y[x][i] = sum_j W[j][i] V[x - j][i + 32 (j & 1)]
+//                                                     (W [16, 32], j < 16)
+// Output slot m of frame g takes taps whose source slot lies in frames g,
+// g - 1, .. g - KS (KS = ceil(480 / 32T): 1 for T = 18 and 36, 2 for
+// T = 12). term_k, the sum of the taps from frame g - k in increasing tap
+// order, is kept apart, and
+//   pcm[g, p] = term_0 + prev(g, p),  prev = term_1 + ... + term_KS
+//   term_k    = the taps' sum  if 0 <= g - k < F (and, for M2, !boundary[g])
+//             = tail0[c, gn + p] if g - k == -1 and gn + p < 480
+//             = 0                 otherwise,
+// where n = 32T, p = 32m + i, and term_k exists only where its first tap
+// is below 16 (kn + p < n + 480): the carried tail0 stands in for all the
+// frames before the call, and tail0 is not used where boundary[0]. The
+// outgoing tail comes from KS virtual frames F .. F + KS - 1 with no
+// samples of their own:
+//   tail_out[c, (g - F) n + p] = prev(g, p)  for (g - F) n + p < 480.
+// V of a slot comes from one loop whichever block computes it, and prev
+// sums the terms in one order, so a stream chained over calls adds the
+// very bits one call adds. With F = 1 at Layer I the carried tail's last
+// 96 samples pass into the outgoing tail as term_2 of virtual frame 1.
+// N mirrors exactly in float32: N[32 - q] = -N[q] for q = 0..15 and
+// N[96 - q] = N[q] for q = 33..47, so 33 rows are computed (0..16 and
+// 33..48) and the other 31 written mirrored, the negated ones as
+// __fsub_rn(0, v) (+0 for an exact zero). Every computed row but 16 (~1e-14,
+// not 0) also folds exactly, N[q][31 - k] = (-1)^q N[q][k], so it takes
+// 16 multiply-adds on the folded slot (S[k] + S[31 - k] for even q, the
+// difference for odd); row 16 takes its 32.
+// Work a frame-channel (M2): 18 slots x (32 x 16 + 32 + 16 x 32) = 19.0K
+// multiply-adds, against 608K for the dense product, for 128T bytes of S
+// read and as many of pcm written: the kernel is bound by memory, where
+// the reference's product is bound by arithmetic.
+// Design: a 256-thread block takes one channel and 144 consecutive output
+// slots (8 granules at T = 18, 12 frames at T = 12, 4 at T = 36) plus the
+// 15 slots before them (the FIR's halo, recomputed by the neighbouring
+// block). (1) It stages their S by cp.async (16-byte copies of M2's
+// slot-major rows; for L1, 4-byte copies from the bitstream stage's sb
+// [F, C, 32, T] into their transposed places) and the 33 computed rows of
+// N by coalesced loads (a lane loading its own rows from device memory
+// touches 16 lines a load). (2) A thread a slot computes
+// V's row 16 and folds its S in place. (3) The matrixing: lane l of a
+// half-warp holds rows l and 48 - l (same parity) in registers and the
+// two half-warps take two slots, so each shared-memory load (four banks:
+// two slots, sum or difference) feeds two fmaf; V [159][72] is written to
+// shared memory. (4) The FIR: a warp takes a run of output slots of one
+// frame, lane i their sample i, W[.][i] in registers; walking the source
+// slots from the last down, it reads each V[x][i] and V[x][i + 32] once
+// for every output they feed, and since the outputs, taps and terms of a
+// run are compile-time (the run's place in its frame is), each output
+// sums its taps in increasing order into its term_k with no test at run
+// time. True fp32 throughout (the reference's 2e-5 bar; the tensor cores
+// offer TF32 at best).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "simt_gemm.cuh"  // cp.async helpers, opt_in, attributes
 
 namespace {
 
@@ -178,164 +204,285 @@ mp3_hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ bt,
 // ----- M2 and L1 --------------------------------------------------------
 
 constexpr int kSynthThreads = 256;
-constexpr int kBM = 64;        // output rows (frame-channels) per block
-constexpr int kBN = 96;        // output columns per block; 480 = 5 * 96
-constexpr int kBK = 32;        // K slab
-constexpr int kOla = 480;      // overlapped columns
-constexpr int kAPad = kBM + 1; // shared strides: odd, so the transposing
-constexpr int kBPad = kBN + 1; // stores below hit 32 distinct banks
+static_assert(kSynthThreads == simt_gemm::kThreads, "attributes' block");
+constexpr int kSynthWarps = kSynthThreads / 32;
+constexpr int kSlots = 144;   // output slots a block: 144 = 4 * lcm(12, 18, 36)
+constexpr int kHalo = 15;     // FIR taps reaching back past the first slot
+constexpr int kRows = kSlots + kHalo;  // staged slots
+constexpr int kSStride = 36;  // S row stride: 16-byte rows
+constexpr int kVStride = 72;  // V row stride (8 mod 32)
+constexpr int kNRows = 33;    // computed rows of N: 0..16, 33..48
+constexpr int kNStride = 33;  // odd: lanes reading 16 rows hit 16 banks
+constexpr int kOla = 480;     // samples a frame's response reaches forward
+constexpr int kMatPairs = 2;  // slot pairs a warp takes at once
+// Shared memory: S [kRows][kSStride], V [kRows][kVStride], the computed
+// rows of N [kNRows][kNStride] (3 blocks an SM).
+constexpr int kSynthSmem =
+    (kRows * (kSStride + kVStride) + kNRows * kNStride) * 4;
 
-// One K pass: acc[i][j] += sum_k A[row i][k] * M[col j][k] over the tile.
-// a_rows[s] is the source row of S for the s-th float4 this thread loads
-// (-1: zeros); m_base points at M's first column of the tile.
-template <int kK>
-__device__ __forceinline__ void synth_pass(
-    float (&acc)[4][6], const float* __restrict__ S,
-    const int64_t (&a_rows)[2], const float* __restrict__ m_base,
-    float* As, float* Bs) {
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  for (int k0 = 0; k0 < kK; k0 += kBK) {
-    __syncthreads();  // the previous slab has been read
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  // src-size 0 writes a zero and reads nothing.
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Frames after its own that a frame's response reaches (KS).
+template <int T>
+constexpr int kSynthSteps = (kOla + 32 * T - 1) / (32 * T);
+
+// Where term_k of a frame comes from: its taps' sum, the carried tail (the
+// frame before the call), or nothing.
+enum TermSource { kSum, kCarried, kNone };
+
+// Output slots kM0 .. kM0 + kP - 1 of one frame (its V row 0 at `v`, lane
+// i's sample i of V row x at v[x * kVStride + i]): the 16-tap FIR and
+// the overlap. Source slots x (frame-local, from the last down to kM0 -
+// 15) are read once each (both halves, lo = V[x][i], hi = V[x][i + 32])
+// for every output m they feed (tap j = m - x < 16), so each output sums
+// its taps in increasing j; the taps from frame g - k (x < 0: k = 1 for
+// -T <= x, else 2) go to a[m][k]. All of it is unrolled: taps, outputs
+// and terms are compile-time.
+template <int T, int kM0, int kP>
+__device__ __forceinline__ void fir_chunk(const float* v, const float (&w)[16],
+                                          const TermSource (&src)[3], int g,
+                                          int lane, int c, int F, int C,
+                                          const float* tail0, float* pcm,
+                                          float* tail_out) {
+  constexpr int kN = 32 * T;
+  constexpr int kSteps = kSynthSteps<T>;
+  float a[kP][kSteps + 1];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {  // A: 64 rows x 8 float4
-      const int f = tid + s * kSynthThreads;
-      const int m = f >> 3, kq = f & 7;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (a_rows[s] >= 0)
-        v = *reinterpret_cast<const float4*>(S + a_rows[s] * kK + k0 + kq * 4);
-      As[(kq * 4 + 0) * kAPad + m] = v.x;
-      As[(kq * 4 + 1) * kAPad + m] = v.y;
-      As[(kq * 4 + 2) * kAPad + m] = v.z;
-      As[(kq * 4 + 3) * kAPad + m] = v.w;
+  for (int m = 0; m < kP; ++m)
+#pragma unroll
+    for (int k = 0; k <= kSteps; ++k) a[m][k] = 0.f;
+#pragma unroll
+  for (int x = kM0 + kP - 1; x >= kM0 - kHalo; --x) {
+    const float lo = v[x * kVStride + lane];
+    const float hi = v[x * kVStride + lane + 32];
+#pragma unroll
+    for (int m = kM0; m < kM0 + kP; ++m) {
+      const int j = m - x;
+      if (j < 0 || j > 15) continue;
+      const int k = x >= 0 ? 0 : (x >= -T ? 1 : 2);
+      a[m - kM0][k] = fmaf(w[j], (j & 1) ? hi : lo, a[m - kM0][k]);
     }
+  }
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {  // B: 96 columns of M x 8 float4
-      const int f = tid + s * kSynthThreads;
-      const int n = f >> 3, kq = f & 7;
-      const float4 v = *reinterpret_cast<const float4*>(
-          m_base + static_cast<int64_t>(n) * kK + k0 + kq * 4);
-      Bs[(kq * 4 + 0) * kBPad + n] = v.x;
-      Bs[(kq * 4 + 1) * kBPad + n] = v.y;
-      Bs[(kq * 4 + 2) * kBPad + n] = v.z;
-      Bs[(kq * 4 + 3) * kBPad + n] = v.w;
+  for (int m = kM0; m < kM0 + kP; ++m) {
+    const int p = m * 32 + lane;
+    float prev = 0.f;
+#pragma unroll
+    for (int k = 1; k <= kSteps; ++k) {
+      if (m + (k - 1) * T >= kHalo) break;  // no tap of frame g - k
+      float term = 0.f;
+      if (src[k] == kSum) {
+        term = a[m - kM0][k];
+      } else if (src[k] == kCarried) {
+        const int t = g * kN + p;
+        if (t < kOla) term = tail0[c * kOla + t];
+      }
+      prev = k == 1 ? term : prev + term;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[6];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk * kAPad + ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) b[j] = Bs[kk * kBPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 6; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (g < F) {
+      pcm[(static_cast<int64_t>(g) * C + c) * kN + p] =
+          m < kHalo ? a[m - kM0][0] + prev : a[m - kM0][0];
+    } else {
+      const int t = (g - F) * kN + p;
+      if (t < kOla) tail_out[c * kOla + t] = prev;
     }
   }
 }
 
-// Grid: x over ceil((F + KS) * C / 64) row tiles (rows r >= F*C are the
-// virtual frames that yield tail_out), y over the n / 96 column tiles.
-template <int T>
+// Grid: x over ceil((F + KS) / (kSlots / T)) runs of frames (frames F ..
+// F + KS - 1 are the virtual frames that yield tail_out), y over channels.
+// kSbMajor: S is the bitstream stage's sb [F, C, 32, T] (L1), else M2's
+// S [F, C, T * 32].
+template <int T, bool kSbMajor>
 __global__ void __launch_bounds__(kSynthThreads)
-synth_kernel(const float* __restrict__ S, const float* __restrict__ M,
-             const float* __restrict__ tail0,
+synth_kernel(const float* __restrict__ S, const float* __restrict__ N,
+             const float* __restrict__ W, const float* __restrict__ tail0,
              const uint8_t* __restrict__ boundary, float* __restrict__ pcm,
              float* __restrict__ tail_out, int F, int C) {
-  constexpr int kN = 32 * T;                      // PCM per frame; depth
-  constexpr int kTotal = kN + kOla;               // response length
-  constexpr int kSteps = (kOla + kN - 1) / kN;    // frames the tail reaches
-  // Column tiles never straddle the end of a K pass's columns.
-  static_assert(kN % kBN == 0 && kOla % kBN == 0, "T % 3 == 0");
-  __shared__ float As[kBK * kAPad];
-  __shared__ float Bs[kBK * kBPad];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int64_t R = static_cast<int64_t>(F) * C;            // real rows
-  const int64_t R_all = static_cast<int64_t>(F + kSteps) * C;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
-  const int col0 = blockIdx.y * kBN;
-  // Pass k (k >= 1) covers this tile when kN * k + col0 < kTotal; pass 1
-  // always does when any does.
-  const bool ola = kN + col0 < kTotal;
+  constexpr int kN = 32 * T;                // samples a frame
+  constexpr int kFrames = kSlots / T;       // frames a block
+  constexpr int kSteps = kSynthSteps<T>;
+  static_assert(kSlots % T == 0 && T >= 12, "T is 12, 18 or 36");
+  extern __shared__ __align__(16) float smem[];
+  float* Ss = smem;
+  float* Vs = Ss + kRows * kSStride;
+  float* Ns = Vs + kRows * kVStride;  // row r: N's row r (r <= 16), r + 16
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.y;
+  const int g0 = blockIdx.x * kFrames;
+  const int base = g0 * T - kHalo;  // stream slot of staged row 0
 
-  float acc[kSteps + 1][4][6];  // [0]: own product, [k]: term_k
-#pragma unroll
-  for (int k = 0; k <= kSteps; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 6; ++j) acc[k][i][j] = 0.f;
-
-  int64_t a_rows[2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int64_t r = row0 + ((tid + s * kSynthThreads) >> 3);
-    a_rows[s] = r < R ? r : -1;
-  }
-  synth_pass<kN>(acc[0], S, a_rows, M + static_cast<int64_t>(col0) * kN, As,
-                 Bs);
-#pragma unroll
-  for (int k = 1; k <= kSteps; ++k) {
-    if (kN * k + col0 >= kTotal) break;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int64_t r = row0 + ((tid + s * kSynthThreads) >> 3);
-      const int64_t g = r / C;
-      const bool linked = r < R_all && g - k >= 0 && g - k < F &&
-                          (g >= F || boundary == nullptr || !boundary[g]);
-      a_rows[s] = linked ? r - static_cast<int64_t>(k) * C : -1;
+  // 1. Stage S of slots base .. base + kRows - 1 (zeros outside 0 .. F-1).
+  if constexpr (kSbMajor) {
+    // Slot-fastest order: consecutive threads read consecutive samples t.
+    for (int e = tid; e < kRows * 32; e += kSynthThreads) {
+      const int k = e / kRows, row = e - k * kRows;
+      const int x = base + row;
+      const int f = (x + 2 * T) / T - 2;  // floor(x / T), x >= -15
+      const bool valid = f >= 0 && f < F;
+      const float* src =
+          valid ? S + (static_cast<int64_t>(f) * C + c) * kN + k * T +
+                      (x - f * T)
+                : S;
+      cp_async4(Ss + row * kSStride + k, src, valid);
     }
-    synth_pass<kN>(acc[k], S, a_rows,
-                   M + static_cast<int64_t>(kN * k + col0) * kN, As, Bs);
+  } else {
+    for (int e = tid; e < kRows * 8; e += kSynthThreads) {
+      const int row = e >> 3, kq = e & 7;
+      const int x = base + row;
+      const int f = (x + 2 * T) / T - 2;
+      const bool valid = f >= 0 && f < F;
+      const float* src =
+          valid ? S + (static_cast<int64_t>(f) * C + c) * kN +
+                      (x - f * T) * 32 + kq * 4
+                : S;
+      simt_gemm::cp_async16(Ss + row * kSStride + kq * 4, src, valid);
+    }
   }
+  simt_gemm::cp_async_commit();
+  // The computed rows of N, coalesced (a lane reading its own rows from
+  // device memory would touch 16 lines a load).
+  for (int e = tid; e < kNRows * 32; e += kSynthThreads) {
+    const int r = e >> 5, k = e & 31;
+    Ns[r * kNStride + k] = __ldg(N + (r < 17 ? r : r + 16) * 32 + k);
+  }
+  simt_gemm::cp_async_wait<0>();
+  __syncthreads();
 
+  // 2. Thread t takes slot t: row 16 of V, the only row of N that does not
+  // satisfy N[q][31 - k] = (-1)^q N[q][k] exactly, as a 32-term product;
+  // then S folded in place: [S[k] + S[31-k] | S[k] - S[31-k]], k < 16.
+  if (tid < kRows) {
+    float x[32];
+    const float4* s4 = reinterpret_cast<const float4*>(Ss + tid * kSStride);
+#pragma unroll
+    for (int kq = 0; kq < 8; ++kq) {
+      const float4 v = s4[kq];
+      x[4 * kq] = v.x;
+      x[4 * kq + 1] = v.y;
+      x[4 * kq + 2] = v.z;
+      x[4 * kq + 3] = v.w;
+    }
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc = fmaf(Ns[16 * kNStride + k], x[k], acc);
+    Vs[tid * kVStride + 16] = acc;
+    float4* f4 = reinterpret_cast<float4*>(Ss + tid * kSStride);
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      const int k = 4 * kq;
+      f4[kq] = make_float4(x[k] + x[31 - k], x[k + 1] + x[30 - k],
+                           x[k + 2] + x[29 - k], x[k + 3] + x[28 - k]);
+      f4[4 + kq] = make_float4(x[k] - x[31 - k], x[k + 1] - x[30 - k],
+                               x[k + 2] - x[29 - k], x[k + 3] - x[28 - k]);
+    }
+  }
+  __syncthreads();
+
+  // 3. Matrixing, folded: V[q] = sum_k<16 N[q][k] (S[k] +- S[31-k]), the
+  // sum for even q and the difference for odd; one fmaf chain in k order
+  // from +0 per V. A warp takes kMatPairs slot pairs at once; each load
+  // feeds two fmaf (rows hl and 48 - hl), and a warp's four addresses (two
+  // slots, sums or differences) lie in four banks. The other rows are
+  // mirrored: N[32 - q] = -N[q] (0 - v: +0 for an exact zero), N[96 - q] =
+  // N[q].
+  // Lane l (half h = l / 16, hl = l % 16) computes rows hl and 48 - hl
+  // (same parity) of slots 2p + h, their coefficients in registers.
+  const int hl = lane & 15, half = lane >> 4;
+  const int odd = hl & 1;
+  float na[16], nb[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    na[k] = Ns[hl * kNStride + k];
+    nb[k] = Ns[(32 - hl) * kNStride + k];
+  }
+  for (int p0 = warp; 2 * p0 < kRows; p0 += kMatPairs * kSynthWarps) {
+    const float* fp[kMatPairs];
+    float acc_a[kMatPairs], acc_b[kMatPairs];
+#pragma unroll
+    for (int i = 0; i < kMatPairs; ++i) {
+      const int row = min(2 * (p0 + i * kSynthWarps) + half, kRows - 1);
+      fp[i] = Ss + row * kSStride + 16 * odd;
+      acc_a[i] = 0.f;
+      acc_b[i] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+#pragma unroll
+      for (int i = 0; i < kMatPairs; ++i) {
+        const float f = fp[i][k];
+        acc_a[i] = fmaf(na[k], f, acc_a[i]);
+        acc_b[i] = fmaf(nb[k], f, acc_b[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMatPairs; ++i) {
+      const int row = 2 * (p0 + i * kSynthWarps) + half;
+      if (row >= kRows) break;
+      float* v = Vs + row * kVStride;
+      v[hl] = acc_a[i];
+      v[32 - hl] = __fsub_rn(0.f, acc_a[i]);  // rows 32 .. 17
+      v[48 - hl] = acc_b[i];
+      if (hl > 0) v[48 + hl] = acc_b[i];  // rows 49 .. 63
+    }
+  }
+  float w[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) w[j] = __ldg(W + j * 32 + lane);
+  __syncthreads();
+
+  // 4. FIR and overlap: a warp an item of kP output slots of one frame
+  // (fir_chunk), lane i their sample i. Where each term_k of the frame
+  // comes from is decided once an item.
+  constexpr int kP = T == 12 ? 6 : 18;  // 24 items at T = 12, else 8
+  constexpr int kChunks = T / kP;
+  static_assert((kFrames * kChunks) % kSynthWarps == 0, "FIR rounds");
   const bool carry = tail0 != nullptr && (boundary == nullptr || !boundary[0]);
+  for (int item = warp; item < kFrames * kChunks; item += kSynthWarps) {
+    const int fl = item / kChunks, chunk = item - fl * kChunks;
+    const int g = g0 + fl;
+    if (g >= F + kSteps) break;
+    const bool cut = g < F && boundary != nullptr && boundary[g];
+    TermSource src[3] = {kSum, kNone, kNone};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = row0 + ty * 4 + i;
-    if (r >= R_all) break;
-    const int64_t g = r / C;
-    const int c = static_cast<int>(r - g * C);
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int n = col0 + tx + 16 * j;
-      float prev = 0.f;
-#pragma unroll
-      for (int k = 1; k <= kSteps; ++k) {
-        if (kN * k + col0 >= kTotal) break;
-        float term = acc[k][i][j];  // zero where S[r - kC] does not exist
-        if (g - k == -1) {
-          const int64_t t = g * kN + n;
-          term = carry && t < kOla ? tail0[c * kOla + t] : 0.f;
-        }
-        prev = k == 1 ? term : prev + term;
-      }
-      if (r >= R) {  // a virtual frame: the outgoing tail
-        const int64_t t = (g - F) * kN + n;
-        if (t < kOla) tail_out[c * kOla + t] = prev;
-      } else {
-        pcm[r * kN + n] = ola ? acc[0][i][j] + prev : acc[0][i][j];
-      }
+    for (int k = 1; k <= kSteps; ++k) {
+      const int f = g - k;
+      src[k] = f == -1 ? (carry ? kCarried : kNone)
+                       : (f >= 0 && f < F && !cut ? kSum : kNone);
+    }
+    const float* v = Vs + (fl * T + kHalo) * kVStride;
+    if (chunk == 0) {
+      fir_chunk<T, 0, kP>(v, w, src, g, lane, c, F, C, tail0, pcm, tail_out);
+    } else if constexpr (kChunks > 1) {
+      fir_chunk<T, kP, kP>(v, w, src, g, lane, c, F, C, tail0, pcm,
+                           tail_out);
     }
   }
 }
 
-template <int T>
-int launch_synth(const void* S, const void* M, const void* tail0,
-                 const void* boundary, void* pcm, void* tail_out, int F,
-                 int C, void* stream) {
+template <int T, bool kSbMajor>
+int launch_synth(const void* S, const void* N, const void* W,
+                 const void* tail0, const void* boundary, void* pcm,
+                 void* tail_out, int F, int C, void* stream) {
   if (F <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
-  constexpr int kSteps = (kOla + 32 * T - 1) / (32 * T);
-  const int64_t rows = (static_cast<int64_t>(F) + kSteps) * C;
-  const dim3 grid(static_cast<unsigned>((rows + kBM - 1) / kBM),
-                  32 * T / kBN);
-  synth_kernel<T><<<grid, kSynthThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(S), static_cast<const float*>(M),
-      static_cast<const float*>(tail0),
+  constexpr int kFrames = kSlots / T;
+  const cudaError_t e =
+      simt_gemm::opt_in(synth_kernel<T, kSbMajor>, kSynthSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(
+      static_cast<unsigned>((F + kSynthSteps<T> + kFrames - 1) / kFrames),
+      static_cast<unsigned>(C));
+  synth_kernel<T, kSbMajor><<<grid, kSynthThreads, kSynthSmem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(S), static_cast<const float*>(N),
+      static_cast<const float*>(W), static_cast<const float*>(tail0),
       static_cast<const uint8_t*>(boundary), static_cast<float*>(pcm),
       static_cast<float*>(tail_out), F, C);
   return static_cast<int>(cudaGetLastError());
@@ -364,24 +511,39 @@ extern "C" int mp3_hybrid_launch(const void* x, const void* bt,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mp3_synth_launch(const void* S, const void* M,
+// S [G, C, 576] (index t*32 + k) -> pcm [G, C, 576], tail_out [C, 480];
+// N [64, 32], W [16, 32]; tail0 and boundary may be null.
+extern "C" int mp3_synth_launch(const void* S, const void* N, const void* W,
                                 const void* tail0, const void* boundary,
                                 void* pcm, void* tail_out, int G, int C,
                                 void* stream) {
-  return launch_synth<18>(S, M, tail0, boundary, pcm, tail_out, G, C, stream);
+  return launch_synth<18, false>(S, N, W, tail0, boundary, pcm, tail_out, G,
+                                 C, stream);
 }
 
 // sb [F, C, 32, T] (T = 12 or 36) -> pcm [F, C, 32T], tail_out [C, 480];
-// M [(T + 15) * 32, 32T] with columns in sb's order; tail0 may be null.
-extern "C" int mpa_l12_synth_launch(const void* sb, const void* M,
-                                    const void* tail0, void* pcm,
-                                    void* tail_out, int F, int C, int T,
-                                    void* stream) {
+// N [64, 32], W [16, 32]; tail0 may be null.
+extern "C" int mpa_l12_synth_launch(const void* sb, const void* N,
+                                    const void* W, const void* tail0,
+                                    void* pcm, void* tail_out, int F, int C,
+                                    int T, void* stream) {
   if (T == 12)
-    return launch_synth<12>(sb, M, tail0, nullptr, pcm, tail_out, F, C,
-                            stream);
+    return launch_synth<12, true>(sb, N, W, tail0, nullptr, pcm, tail_out, F,
+                                  C, stream);
   if (T == 36)
-    return launch_synth<36>(sb, M, tail0, nullptr, pcm, tail_out, F, C,
-                            stream);
+    return launch_synth<36, true>(sb, N, W, tail0, nullptr, pcm, tail_out, F,
+                                  C, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The synthesis kernel's registers, local bytes and blocks per SM at T
+// (12, 18 or 36; simt_gemm::attributes): out[3].
+extern "C" int mp3_synth_attributes(int T, int* out) {
+  if (T == 12)
+    return simt_gemm::attributes(synth_kernel<12, true>, kSynthSmem, out);
+  if (T == 18)
+    return simt_gemm::attributes(synth_kernel<18, false>, kSynthSmem, out);
+  if (T == 36)
+    return simt_gemm::attributes(synth_kernel<36, true>, kSynthSmem, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }

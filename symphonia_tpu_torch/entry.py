@@ -7,8 +7,9 @@ lane batch, composed of the port's kernels:
 
 * FLAC: F1 ``flac_lpc`` (recurrence and wasted bits) over ``[2F, N]``
   lanes, then F2 ``flac_decorrelate`` over ``[F, 2, N]``;
-* MP3: M1 ``mp3_hybrid`` and M2 ``mp3_synth`` with zero carried state, all
-  ``G`` granules one stream;
+* MP3: M1 ``mp3_hybrid`` and M2 ``mp3_synth`` (the factored polyphase
+  synthesis: matrixing, then the 16-tap windowed FIR) with zero carried
+  state, all ``G`` granules one stream;
 * AAC: A1 ``aac_imdct`` with its dequant prologue over the lanes whose
   window sequence is not EIGHT_SHORT, A1 without it over the ``[8S, 128]``
   windows of the short lanes (A2 ``aac_dequant`` first where a short lane
@@ -142,7 +143,7 @@ def _step(k: SimpleNamespace, flac_res, flac_coefs, flac_order, flac_shift,
     mp3 = c.mp3
     S, _ = k.hybrid(mp3_spectra, mp3_bt, mp3_mixed, None, None, mp3.hybrid,
                     mp3.cs, mp3.ca, mp3.finv)
-    mp3_pcm, _ = k.synth(S, mp3.polyphase, None, None)
+    mp3_pcm, _ = k.synth(S, mp3.matrixing, mp3.window, None, None)
 
     # --- AAC: dequantize the handoff lanes, one IMDCT per window class,
     # then the window/overlap-add over the batch as one sequence ---

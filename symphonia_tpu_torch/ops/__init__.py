@@ -4,7 +4,8 @@ a plain PyTorch twin beside it.
 * ``flac_dense`` — FLAC predictor reconstruction + wasted bits (kernel F1)
   and stereo decorrelation (kernel F2).
 * ``mp3_dense`` — MP3 Layer III hybrid synthesis (kernel M1), and the fp32
-  polyphase product fused with the synthesis overlap-add (kernel M2), for
+  polyphase synthesis in factored form (matrixing, then the 16-tap
+  windowed FIR) fused with the synthesis overlap-add (kernel M2), for
   Layer I/II frames too (kernel L1, M2's body).
 * ``aac_dense`` — AAC-LC IMDCTs in fp32 with the handoff dequantization as
   their prologue (kernel A1: half of the product on a pipelined SIMT tile,

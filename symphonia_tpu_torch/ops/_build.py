@@ -57,8 +57,8 @@ _SIGNATURES = {
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
     # stream
     "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _P],
-    # S, M, tail0, boundary, pcm, tail_out, G, C, stream
-    "mp3_synth_launch": [_P] * 6 + [_I, _I, _P],
+    # S, N, W, tail0, boundary, pcm, tail_out, G, C, stream
+    "mp3_synth_launch": [_P] * 7 + [_I, _I, _P],
     # X, M, qbuf (None: no dequant prologue), scales, deq, sfb_map, pow43,
     # Y, L, n, stream
     "aac_imdct_launch": [_P] * 8 + [_I, _I, _P],
@@ -69,8 +69,8 @@ _SIGNATURES = {
     "aac_ola_launch": [_P] * 11 + [_I, _P],
     # X, M, Y, L, n, stream
     "vorbis_imdct_launch": [_P] * 3 + [_I, _I, _P],
-    # sb, M, tail0, pcm, tail_out, F, C, T, stream
-    "mpa_l12_synth_launch": [_P] * 5 + [_I, _I, _I, _P],
+    # sb, N, W, tail0, pcm, tail_out, F, C, T, stream
+    "mpa_l12_synth_launch": [_P] * 6 + [_I, _I, _I, _P],
     # t, w, pcm, V, n1, stream
     "vorbis_lap_launch": [_P] * 3 + [_I64, _I, _P],
     # in, table (None unless G.711), out, B, N, bps, big_endian, finish,

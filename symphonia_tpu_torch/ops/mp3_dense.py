@@ -13,16 +13,20 @@ Two kernels:
 * ``mp3_hybrid`` (M1): antialias, hybrid IMDCT per block type, hybrid
   overlap-add, frequency inversion, written as the polyphase operand
   ``S [G, C, 576]`` (vec index t*32 + k);
-* ``mp3_synth`` (M2): the product of ``S`` with the ``[1056, 576]``
-  combined polyphase matrix in true fp32, with the 480-sample synthesis
-  overlap-add fused into it.
+* ``mp3_synth`` (M2): the polyphase synthesis in true fp32, in factored
+  form: the ``[64, 32]`` matrixing of each 32-sample slot, then the 16-tap
+  windowed FIR across slots, with the 480-sample synthesis overlap-add
+  fused in. The reference computes it as one product with the ``[1056,
+  576]`` combined polyphase matrix (``_polyphase_combined_matrix``), whose
+  blocks are those two factors; the factored form, with N's mirrored and
+  folded rows, does 32x fewer multiply-adds.
 
 Layer I/II (``:273``, ``l12_dense_batch_jax``) has no hybrid stage: its
-bitstream stage's subband samples go straight into the polyphase product,
-``[F*C, 32T] x [32T, 32T + 480]`` for T = 12 (Layer I) or 36 (Layer II),
-and the 480-sample tail overlaps the next ceil(480 / 32T) frames (two for
-Layer I), with a carried ``synth_tail [C, 480]`` between calls. One kernel,
-``mpa_l12_synth`` (L1), M2's body for those T.
+bitstream stage's subband samples ``sb [F, C, 32, T]`` go straight into the
+same synthesis, for T = 12 (Layer I) or 36 (Layer II), and the 480-sample
+tail overlaps the next ceil(480 / 32T) frames (two for Layer I), with a
+carried ``synth_tail [C, 480]`` between calls. One kernel,
+``mpa_l12_synth`` (L1), M2's body for those T, reading sb as it is.
 
 The operator tables come from the numpy builders below, the reference
 package's own, copied (``symphonia_tpu/ops/mp3_dense.py:29-259``), and are
@@ -281,31 +285,36 @@ def granule_dense_np(
 
 
 def reference_tables() -> Dict[str, np.ndarray]:
-    """The dense stage's constant operators, from the builders above."""
+    """The dense stage's constant operators, from the builders above: the
+    hybrid stage's, and the polyphase synthesis's two factors (the
+    combined matrix ``_polyphase_combined_matrix`` is their product)."""
     cs, ca = antialias_coeffs()
     return {
         "hybrid": hybrid_matrices(),               # [4, 36, 18]
         "cs": cs, "ca": ca,                        # [8] each
         "finv": freq_inversion_mask(),             # [32, 18]
-        "polyphase": _polyphase_combined_matrix(),  # [1056, 576]
+        **l12_tables(),
     }
 
 
 L12_T = (12, 36)  # subband samples per frame: Layer I, Layer II
 
 
-def l12_tables() -> Dict[int, np.ndarray]:
-    """Layer I/II polyphase operators ``[(T+15)*32, 32T]`` per T, from the
-    reference builder, with the K axis permuted into the order of the
-    bitstream stage's ``sb [.., 32, T]`` (index k*T + t for subband k,
-    sample t; the reference's is t*32 + k), so ``sb`` enters the product
-    as it is."""
-    out = {}
-    for T in L12_T:
-        m = _polyphase_combined_matrix(T)
-        out[T] = np.ascontiguousarray(
-            m.reshape(-1, T, 32).transpose(0, 2, 1).reshape(m.shape))
-    return out
+def l12_tables() -> Dict[str, np.ndarray]:
+    """The polyphase synthesis's factors, shared by every frame width T:
+    the matrixing ``N [64, 32]`` and the synthesis window ``W [16, 32]``
+    (its tap selection ``_synth_sel_idx`` is i + 32 (k & 1), computed)."""
+    return {"matrixing": polyphase_matrix(),  # [64, 32]
+            "window": synthesis_window()}     # [16, 32]
+
+
+# The rows of N the kernels compute: N[32 - q] = -N[q] for q = 0..15 and
+# N[96 - q] = N[q] for q = 33..47 hold exactly in float32, so rows 0..16
+# and 33..48 give the other 31. Of those, every row but 16 also satisfies
+# N[q][31 - k] = (-1)^q N[q][k] exactly, so it is computed from the folded
+# slot (S[k] + S[31 - k] for even q, S[k] - S[31 - k] for odd, k < 16);
+# row 16 (~1e-14, not 0) takes the plain 32-term product.
+MATRIXING_ROWS = tuple(range(16)) + tuple(range(33, 49))
 
 
 # ---------------------------------------------------------------------------
@@ -355,70 +364,91 @@ def mp3_hybrid_plain(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
     return S, tails[-1].clone()
 
 
-def mp3_synth_plain(S, polyphase, synth_tail0, boundary):
-    """Twin of M2: S [G, C, 576] -> (pcm [G, C, 576], tail [C, 480])."""
-    G, C, _ = S.shape
-    # The CPU product's sum order depends on G (its BLAS splits K across
-    # threads for few rows), so chained calls equal one call within fp32
-    # rounding here, and bit for bit only in M2.
-    resp = torch.matmul(S, polyphase.T.contiguous())  # [G, C, 1056]
-    if synth_tail0 is None:
-        synth_tail0 = torch.zeros((C, 480), dtype=S.dtype, device=S.device)
-    prev = torch.cat([synth_tail0[None], resp[:-1, :, 576:]], dim=0)
-    if boundary is not None:
-        prev = torch.where(boundary[:, None, None], 0.0, prev)
-    pcm = torch.cat([resp[:, :, :480] + prev, resp[:, :, 480:576]], dim=2)
-    return pcm, resp[-1, :, 576:].clone()
+def _matrixing(S, matrixing):
+    """``V [..., 64]`` from ``S [..., 32]`` as the kernels form it: the rows
+    of :data:`MATRIXING_ROWS` from the folded slot, row 16 from the plain
+    product, the other rows mirrored (the negated ones as 0 - v, +0 for an
+    exact zero)."""
+    lo, hi = S[..., :16], S[..., 16:].flip(-1)  # S[k], S[31 - k]
+    rows = torch.tensor(MATRIXING_ROWS, device=S.device)
+    n = matrixing.index_select(0, rows)[:, :16]  # [32, 16]
+    odd = (rows % 2 == 1)
+    v = torch.where(odd, torch.matmul(lo - hi, n.T),
+                    torch.matmul(lo + hi, n.T))  # [..., 32]
+    low, up = v[..., :16], v[..., 16:]  # rows 0..15, 33..48
+    row16 = torch.matmul(S, matrixing[16])[..., None]
+    return torch.cat([low, row16, 0.0 - low.flip(-1),  # 0..16, 17..32
+                      up, up[..., :15].flip(-1)], dim=-1)  # 33..48, 49..63
 
 
-def l12_synth_plain(sb, polyphase, synth_tail0):
-    """Twin of L1: ``sb [F, C, 32, T] -> (pcm [F, C, 32T], tail [C, 480])``,
-    the reference's ``l12_dense_batch_jax`` line for line, ``polyphase``
-    from :func:`l12_tables` (K in sb's order)."""
-    F, C, _, T = sb.shape
+def _synth_factored(S, matrixing, window, synth_tail0, boundary):
+    """The factored polyphase synthesis of M2 and L1, step by step as the
+    kernel takes it: ``S [F, C, T, 32]`` (slot-major) -> ``(pcm [F, C,
+    32T], tail [C, 480])``. V from :func:`_matrixing`; the 16-tap FIR sums
+    the taps of each source frame apart (term_k: frame g - k), in tap
+    order; ``pcm = term_0 + (term_1 + term_2)`` where the response of the
+    frames before reaches, with ``synth_tail0`` standing in for the frames
+    before the call (not where ``boundary[0]``) and ``boundary [F]``
+    zeroing the terms of earlier frames; the outgoing tail is that sum for
+    the K virtual frames after the last."""
+    F, C, T, _ = S.shape
     n = 32 * T
-    total = n + 480
     K = -(-480 // n)  # frames the tail reaches forward
+    dev, dt = S.device, S.dtype
+    slots = (F + K) * T
+    V = _matrixing(S, matrixing).permute(1, 0, 2, 3).reshape(C, F * T, 64)
+    V = torch.cat([V.new_zeros(C, 15, 64), V, V.new_zeros(C, K * T, 64)],
+                  dim=1)
+    a = [torch.zeros((C, F + K, T, 32), dtype=dt, device=dev)
+         for _ in range(K + 1)]
+    for j in range(16):
+        h = 32 * (j & 1)
+        c = (window[j] * V[:, 15 - j: 15 - j + slots, h: h + 32]).reshape(
+            C, F + K, T, 32)
+        # Tap j of output slot m comes from frame g - k: k = 0 for m >= j,
+        # 1 for j - T <= m < j, 2 below.
+        lo = max(j - T, 0)
+        for k, (m0, m1) in enumerate(((j, T), (lo, j), (0, lo))[:K + 1]):
+            a[k][:, :, m0:m1] += c[:, :, m0:m1]
+    a = [x.reshape(C, F + K, n) for x in a]
+    g = torch.arange(F + K, device=dev)[:, None]
+    p = torch.arange(n, device=dev)[None, :]
+    cut = torch.zeros(F + K, dtype=torch.bool, device=dev)
+    if boundary is not None:
+        cut[:F] = boundary.to(torch.bool)
+    tail = torch.zeros((C, 480), dtype=dt, device=dev)
+    if synth_tail0 is not None:
+        tail = synth_tail0 if boundary is None else torch.where(
+            boundary[0], 0.0, synth_tail0)
+    prev = torch.zeros((C, F + K, n), dtype=dt, device=dev)
+    for k in range(1, K + 1):
+        src = g - k
+        t = g * n + p  # the carried tail's index where src == -1
+        carried = torch.where(t < 480, tail[:, t.clamp(max=479)], 0.0)
+        linked = (src >= 0) & (src < F) & ~cut[:, None]
+        term = torch.where(src == -1, carried,
+                           torch.where(linked, a[k], 0.0))
+        in_range = p + (k - 1) * n < 480
+        prev = torch.where(in_range, term if k == 1 else prev + term, prev)
+    pcm = torch.where(p < 480, a[0][:, :F] + prev[:, :F], a[0][:, :F])
+    return (pcm.transpose(0, 1).contiguous(),
+            prev[:, F:].reshape(C, K * n)[:, :480].contiguous())
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=sb.dtype, device=sb.device)
 
-    resp = torch.matmul(sb.reshape(F, C, n), polyphase.T.contiguous())
-    if synth_tail0 is None:
-        synth_tail0 = zeros(C, 480)
-    pcm = resp[:, :, :n]
-    # (a) tails of earlier frames in the batch: k-step shifts along F.
-    for k in range(1, min(K, F) + 1):
-        lo, hi = k * n, min((k + 1) * n, total)
-        if lo >= total or F <= k:
-            break
-        seg = resp[: F - k, :, lo:hi]
-        if hi - lo < n:
-            seg = torch.cat([seg, zeros(F - k, C, n - (hi - lo))], dim=2)
-        pcm = pcm + torch.cat([zeros(k, C, n), seg], dim=0)
-    # (b) the carried tail, sliced across the first min(K, F) frames.
-    carried = (torch.cat([synth_tail0, zeros(C, K * n - 480)], dim=1)
-               if K * n > 480 else synth_tail0)
-    nf = min(K, F)
-    lead = carried[:, : nf * n].reshape(C, nf, n).transpose(0, 1)
-    if nf < F:
-        lead = torch.cat([lead, zeros(F - nf, C, n)], dim=0)
-    pcm = pcm + lead
-    # Outgoing tail: pending response of the last K frames (+ any carried
-    # remainder when the batch is shorter than the tail's reach).
-    synth_tail = zeros(C, 480)
-    for j in range(min(K, F)):
-        lo = n * (j + 1)
-        width = min(480, total - lo)
-        part = resp[F - 1 - j, :, lo : lo + width]
-        if width < 480:
-            part = torch.cat([part, zeros(C, 480 - width)], dim=1)
-        synth_tail = synth_tail + part
-    if F * n < 480:
-        left = synth_tail0[:, F * n :]
-        synth_tail = synth_tail + torch.cat(
-            [left, zeros(C, 480 - left.shape[1])], dim=1)
-    return pcm, synth_tail
+def mp3_synth_plain(S, matrixing, window, synth_tail0, boundary):
+    """Twin of M2: S [G, C, 576] (index t*32 + k) -> (pcm [G, C, 576], tail
+    [C, 480]), the factored synthesis of :func:`_synth_factored`."""
+    G, C, _ = S.shape
+    return _synth_factored(S.reshape(G, C, 18, 32), matrixing, window,
+                           synth_tail0, boundary)
+
+
+def l12_synth_plain(sb, matrixing, window, synth_tail0):
+    """Twin of L1: ``sb [F, C, 32, T] -> (pcm [F, C, 32T], tail [C, 480])``
+    for T = 12 or 36, the factored synthesis of :func:`_synth_factored` on
+    sb read slot by slot."""
+    return _synth_factored(sb.transpose(2, 3), matrixing, window,
+                           synth_tail0, None)
 
 
 # ---------------------------------------------------------------------------
@@ -470,71 +500,75 @@ def mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
     return S, tail
 
 
-def mp3_synth(S, polyphase, synth_tail0, boundary):
+def _check_factors(matrixing, window) -> bool:
+    return (matrixing.dtype == torch.float32 and window.dtype == torch.float32
+            and matrixing.shape == (64, 32) and window.shape == (16, 32)
+            and matrixing.data_ptr() % 16 == 0)
+
+
+def mp3_synth(S, matrixing, window, synth_tail0, boundary):
     """M2 wrapper: S [G, C, 576] -> (pcm [G, C, 576], tail [C, 480]), the
-    polyphase product with ``polyphase [1056, 576]`` in true fp32 and the
-    synthesis overlap-add in one kernel."""
+    factored polyphase synthesis (matrixing ``N [64, 32]``, then the
+    16-tap FIR with window ``W [16, 32]``) with the 480-sample overlap in
+    one kernel, in true fp32."""
     G, C, _ = S.shape
     if G == 0:
         raise ValueError("empty granule batch")
     if _build.device_type(S) == "cpu":
-        return mp3_synth_plain(S, polyphase, synth_tail0, boundary)
+        return mp3_synth_plain(S, matrixing, window, synth_tail0, boundary)
     S = S.contiguous()
     boundary = (None if boundary is None
                 else boundary.to(torch.bool).contiguous())
     synth_tail0 = (None if synth_tail0 is None
                    else synth_tail0.to(torch.float32).contiguous())
     opt = [t for t in (boundary, synth_tail0) if t is not None]
-    dev = _build.require_cuda(S, polyphase, *opt)
+    dev = _build.require_cuda(S, matrixing, window, *opt)
     if (S.dtype != torch.float32 or S.shape[2] != 576
-            or polyphase.dtype != torch.float32
-            or polyphase.shape != (1056, 576)
+            or not _check_factors(matrixing, window)
             or (boundary is not None and boundary.shape != (G,))
             or (synth_tail0 is not None and synth_tail0.shape != (C, 480))):
-        raise ValueError("f32 S [G, C, 576], polyphase [1056, 576], "
-                         "boundary [G], tail [C, 480]")
-    if S.data_ptr() % 16 or polyphase.data_ptr() % 16:
-        raise ValueError("S and polyphase must be 16-byte aligned")
+        raise ValueError("f32 S [G, C, 576], matrixing [64, 32] (16-byte "
+                         "aligned), window [16, 32], boundary [G], tail "
+                         "[C, 480]")
+    if S.data_ptr() % 16:
+        raise ValueError("S must be 16-byte aligned")
     pcm = torch.empty((G, C, 576), dtype=torch.float32, device=dev)
     tail = torch.empty((C, 480), dtype=torch.float32, device=dev)
-    lib = _build.lib()
-    err = lib.mp3_synth_launch(
-        S.data_ptr(), polyphase.data_ptr(), _opt_ptr(synth_tail0),
-        _opt_ptr(boundary), pcm.data_ptr(), tail.data_ptr(), G, C,
-        _build.stream_ptr(dev))
+    err = _build.lib().mp3_synth_launch(
+        S.data_ptr(), matrixing.data_ptr(), window.data_ptr(),
+        _opt_ptr(synth_tail0), _opt_ptr(boundary), pcm.data_ptr(),
+        tail.data_ptr(), G, C, _build.stream_ptr(dev))
     _build.LAUNCHES["mp3_synth"] += 1
     _build.check("mp3_synth", err)
     return pcm, tail
 
 
-def mpa_l12_synth(sb, polyphase, synth_tail0):
+def mpa_l12_synth(sb, matrixing, window, synth_tail0):
     """L1 wrapper: ``sb [F, C, 32, T] -> (pcm [F, C, 32T], tail [C,
-    480])`` for T = 12 or 36, the polyphase product with ``polyphase``
-    (:func:`l12_tables`) in true fp32 and the K-step overlap-add in one
-    kernel; ``synth_tail0`` None means stream start."""
+    480])`` for T = 12 or 36, M2's factored synthesis on sb as it is, in
+    true fp32; ``synth_tail0`` None means stream start."""
     F, C, _, T = sb.shape
     if F == 0:
         raise ValueError("empty frame batch")
     if _build.device_type(sb) == "cpu":
-        return l12_synth_plain(sb, polyphase, synth_tail0)
+        return l12_synth_plain(sb, matrixing, window, synth_tail0)
     sb = sb.contiguous()
     synth_tail0 = (None if synth_tail0 is None
                    else synth_tail0.to(torch.float32).contiguous())
     opt = [] if synth_tail0 is None else [synth_tail0]
-    dev = _build.require_cuda(sb, polyphase, *opt)
+    dev = _build.require_cuda(sb, matrixing, window, *opt)
     if (sb.dtype != torch.float32 or sb.shape[2] != 32 or T not in L12_T
-            or polyphase.dtype != torch.float32
-            or polyphase.shape != ((T + 15) * 32, 32 * T)
+            or not _check_factors(matrixing, window)
             or (synth_tail0 is not None and synth_tail0.shape != (C, 480))):
-        raise ValueError("f32 sb [F, C, 32, T] with T 12 or 36, polyphase "
-                         "[(T+15)*32, 32T], tail [C, 480]")
-    if sb.data_ptr() % 16 or polyphase.data_ptr() % 16:
-        raise ValueError("sb and polyphase must be 16-byte aligned")
+        raise ValueError("f32 sb [F, C, 32, T] with T 12 or 36, matrixing "
+                         "[64, 32] (16-byte aligned), window [16, 32], tail "
+                         "[C, 480]")
     pcm = torch.empty((F, C, 32 * T), dtype=torch.float32, device=dev)
     tail = torch.empty((C, 480), dtype=torch.float32, device=dev)
     err = _build.lib().mpa_l12_synth_launch(
-        sb.data_ptr(), polyphase.data_ptr(), _opt_ptr(synth_tail0),
-        pcm.data_ptr(), tail.data_ptr(), F, C, T, _build.stream_ptr(dev))
+        sb.data_ptr(), matrixing.data_ptr(), window.data_ptr(),
+        _opt_ptr(synth_tail0), pcm.data_ptr(), tail.data_ptr(), F, C, T,
+        _build.stream_ptr(dev))
     _build.LAUNCHES["mpa_l12_synth"] += 1
     _build.check("mpa_l12_synth", err)
     return pcm, tail
@@ -552,13 +586,14 @@ class Mp3Dense(nn.Module):
     boundary=None) -> (pcm, hybrid_tail, synth_tail)`` with the reference's
     semantics; ``None`` tails mean stream start."""
 
-    def __init__(self, hybrid, cs, ca, finv, polyphase):
+    def __init__(self, hybrid, cs, ca, finv, matrixing, window):
         super().__init__()
         self.register_buffer("hybrid", hybrid)        # [4, 36, 18]
         self.register_buffer("cs", cs)                # [8]
         self.register_buffer("ca", ca)                # [8]
         self.register_buffer("finv", finv)            # [32, 18]
-        self.register_buffer("polyphase", polyphase)  # [1056, 576]
+        self.register_buffer("matrixing", matrixing)  # [64, 32]
+        self.register_buffer("window", window)        # [16, 32]
 
     @classmethod
     def from_numpy(cls, tables: Dict[str, np.ndarray], device) -> "Mp3Dense":
@@ -566,8 +601,8 @@ class Mp3Dense(nn.Module):
             return torch.from_numpy(np.ascontiguousarray(
                 tables[k], dtype=np.float32))
 
-        return cls(t("hybrid"), t("cs"), t("ca"), t("finv"),
-                   t("polyphase")).to(torch.device(device))
+        return cls(t("hybrid"), t("cs"), t("ca"), t("finv"), t("matrixing"),
+                   t("window")).to(torch.device(device))
 
     @staticmethod
     def state_from_numpy(hybrid_tail: np.ndarray, synth_tail: np.ndarray,
@@ -587,27 +622,29 @@ class Mp3Dense(nn.Module):
                 boundary=None):
         S, hybrid_tail = mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0,
                                     self.hybrid, self.cs, self.ca, self.finv)
-        pcm, synth_tail = mp3_synth(S, self.polyphase, synth_tail0, boundary)
+        pcm, synth_tail = mp3_synth(S, self.matrixing, self.window,
+                                    synth_tail0, boundary)
         return pcm, hybrid_tail, synth_tail
 
 
 class L12Dense(nn.Module):
-    """The Layer I/II dense stage with its polyphase operators as buffers
-    ``polyphase_12`` [864, 384] and ``polyphase_36`` [1632, 1152]
-    (:func:`l12_tables`).
+    """The Layer I/II dense stage with the polyphase factors as buffers
+    ``matrixing`` [64, 32] and ``window`` [16, 32] (:func:`l12_tables`),
+    one pair for both frame widths.
 
     ``forward(sb, synth_tail0=None) -> (pcm, synth_tail)`` with the
     reference's semantics; ``None`` means stream start."""
 
-    def __init__(self, polyphase_12, polyphase_36):
+    def __init__(self, matrixing, window):
         super().__init__()
-        self.register_buffer("polyphase_12", polyphase_12)
-        self.register_buffer("polyphase_36", polyphase_36)
+        self.register_buffer("matrixing", matrixing)
+        self.register_buffer("window", window)
 
     @classmethod
-    def from_numpy(cls, tables: Dict[int, np.ndarray], device) -> "L12Dense":
-        return cls(*(torch.from_numpy(np.array(tables[T], np.float32))
-                     for T in L12_T)).to(torch.device(device))
+    def from_numpy(cls, tables: Dict[str, np.ndarray], device) -> "L12Dense":
+        return cls(*(torch.from_numpy(np.array(tables[k], np.float32))
+                     for k in ("matrixing", "window"))).to(
+                         torch.device(device))
 
     @staticmethod
     def state_from_numpy(synth_tail: np.ndarray, device) -> torch.Tensor:
@@ -624,5 +661,4 @@ class L12Dense(nn.Module):
         T = sb.shape[3]
         if T not in L12_T:
             raise ValueError(f"T = {T}: Layer I has 12, Layer II 36")
-        return mpa_l12_synth(sb, getattr(self, f"polyphase_{T}"),
-                             synth_tail0)
+        return mpa_l12_synth(sb, self.matrixing, self.window, synth_tail0)

@@ -136,12 +136,13 @@ def test_mp3_and_l12_tables():
     cs, ca = ref.antialias_coeffs()
     for k, want in (("hybrid", ref.hybrid_matrices()), ("cs", cs),
                     ("ca", ca), ("finv", ref.freq_inversion_mask()),
-                    ("polyphase", ref._polyphase_combined_matrix())):
+                    ("matrixing", ref.polyphase_matrix()),
+                    ("window", ref.synthesis_window())):
         _equal(got[k], want)
-    for T, m in port.l12_tables().items():
-        want = ref._polyphase_combined_matrix(T)
-        _equal(m, want.reshape(-1, T, 32).transpose(0, 2, 1).reshape(
-            want.shape))
+    l12 = port.l12_tables()
+    assert l12.keys() == {"matrixing", "window"}
+    _equal(l12["matrixing"], ref.polyphase_matrix())
+    _equal(l12["window"], ref.synthesis_window())
     _equal(port.synthesis_window(), ref.synthesis_window())
     _equal(port.polyphase_matrix(), ref.polyphase_matrix())
 

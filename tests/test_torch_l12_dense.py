@@ -98,18 +98,28 @@ def test_matches_numpy_polyphase_oracle(dense, T):
 
 
 def test_tables_are_the_reference_matrices_in_sb_order():
+    # The factors rebuild the reference's combined matrix, whose column
+    # t*32 + k is sb's k*T + t: block (slot m, slot t) = diag(W[m - t]) .
+    # N[i + 32 ((m - t) & 1)] for 0 <= m - t < 16, in f64 then cast.
+    N = TABLES["matrixing"].astype(np.float64)
+    W = TABLES["window"].astype(np.float64)
+    i = np.arange(32)
     for T in (12, 36):
         m = _polyphase_combined_matrix(T)
-        assert TABLES[T].shape == m.shape == ((T + 15) * 32, 32 * T)
+        assert m.shape == ((T + 15) * 32, 32 * T)
         k, t = 5, T - 1  # subband k, sample t
-        np.testing.assert_array_equal(TABLES[T][:, k * T + t],
+        col = np.zeros((T + 15) * 32)
+        for j in range(16):
+            col[(t + j) * 32 + i] = W[j] * N[i + 32 * (j & 1), k]
+        np.testing.assert_array_equal(col.astype(np.float32),
                                       m[:, t * 32 + k])
 
 
 def test_buffers_and_state_roundtrip(dense):
-    assert {n for n, _ in dense.named_buffers()} == {"polyphase_12",
-                                                     "polyphase_36"}
-    np.testing.assert_array_equal(dense.polyphase_36.numpy(), TABLES[36])
+    assert {n for n, _ in dense.named_buffers()} == {"matrixing", "window"}
+    np.testing.assert_array_equal(dense.matrixing.numpy(),
+                                  TABLES["matrixing"])
+    np.testing.assert_array_equal(dense.window.numpy(), TABLES["window"])
     tail = np.random.default_rng(8).standard_normal((2, 480)).astype(
         np.float32)
     t = port.L12Dense.state_from_numpy(tail, "cpu")
@@ -118,7 +128,8 @@ def test_buffers_and_state_roundtrip(dense):
 
 def test_wrapper_runs_twin_on_cpu_and_checks_shapes(dense):
     sb, tail = _inputs(9, 4, 2, 12)
-    args = (torch.from_numpy(sb), dense.polyphase_12, torch.from_numpy(tail))
+    args = (torch.from_numpy(sb), dense.matrixing, dense.window,
+            torch.from_numpy(tail))
     for a, b in zip(port.mpa_l12_synth(*args), port.l12_synth_plain(*args)):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):

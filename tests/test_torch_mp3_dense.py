@@ -137,11 +137,12 @@ class TestMp3DenseVsReference:
 
     def test_buffers_are_the_reference_tables(self, dense):
         np.testing.assert_array_equal(dense.hybrid.numpy(), TABLES["hybrid"])
-        np.testing.assert_array_equal(dense.polyphase.numpy(),
-                                      TABLES["polyphase"])
+        np.testing.assert_array_equal(dense.matrixing.numpy(),
+                                      TABLES["matrixing"])
+        np.testing.assert_array_equal(dense.window.numpy(), TABLES["window"])
         np.testing.assert_array_equal(dense.finv.numpy(), TABLES["finv"])
         assert {n for n, _ in dense.named_buffers()} == {
-            "hybrid", "cs", "ca", "finv", "polyphase"}
+            "hybrid", "cs", "ca", "finv", "matrixing", "window"}
 
     def test_empty_batch_raises(self, dense):
         with pytest.raises(ValueError):
