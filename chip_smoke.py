@@ -5,8 +5,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one line each; any failure raises and exits non-zero):
   1. environment: CUDA card, native host library, nvcc build of csrc/*.cu;
-  2. each kernel (F1 flac_lpc, F2 flac_decorrelate, M1 mp3_hybrid,
-     M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola, V1
+  2. each kernel (F1 flac_lpc with its helper, F2 flac_decorrelate,
+     M1 mp3_hybrid, M2 mp3_synth, A1 aac_imdct, A2 aac_dequant, A3 aac_ola, V1
      vorbis_imdct, L1 mpa_l12_synth, V2 vorbis_lap, P1 pcm_unpack) against
      its plain PyTorch twin on the card at the main path's shapes, with
      CUDA-event times for both; the MP3 dense stage against the reference's
@@ -27,10 +27,23 @@ Phases (one line each; any failure raises and exits non-zero):
      sizes (64 and 8192); L1 for Layer I and II, chained over
      calls (Layer I chunks of 1 and 2 frames included) against one call,
      and against the reference's numpy polyphase; V2 vorbis_lap bit for bit
-     at [16384, 2048] and [4096, 64]; P1 bit for bit at [16384, 16384] for
-     each of its 18 codecs; beside each kernel's time, the least time the
-     card could take for its work (``bound_ms``) and, where one PyTorch
-     call computes the same function, that call's time (``library_ms``);
+     at [16384, 2048] and [4096, 64]; F1 bit for bit on dense random
+     coefficients, on two packer-shaped draws (coefficients zero beyond
+     the order: the entry step's orders 0-12, and a mix of LPC-12, LPC-32,
+     fixed-2 and verbatim lanes like phase 3's) and on a ragged shape (L =
+     8229, n = 4107, rows 16 wider, every tap count) with a lane's taps
+     on 2 and 4 threads, its helper flac_lane_order (tap counts and
+     the lane order) against the plain tensor functions, its bound the
+     larger of bytes and the taps' integer multiply-adds at the rate a
+     micro-kernel measures in this run,
+     with its registers, spills and blocks per SM; P1 bit for bit at
+     [16384, 16384] for each of its 18 codecs and at shapes that leave its
+     vector path (rows off the load's alignment, a view at storage offset
+     1, one row, rows shorter than a group, every byte value), with its
+     registers, spills and blocks per SM; beside each kernel's time, the
+     least time the card could take for its work (``bound_ms``) and, where
+     one PyTorch call computes the same function, that call's time
+     (``library_ms``);
   3. the slice: ``symphonia_tpu_torch.batch.decode_many`` on a mixed
      FLAC + MP3 Layer III + AAC-LC + Ogg Vorbis + MPEG Layer I/II batch
      with per-packet entries (PCM in WAV, AIFF, CAF and MP4, IMA and MS
@@ -137,6 +150,10 @@ RICE_SIZE = dict(B=8192, n=4096, k=4)
 
 # Kernel -> (route, source, the TPU program it replaces)
 KERNEL_INFO = {
+    # F1's helper: the tap count and lane order that the recurrence of
+    # :44 does without (it multiplies all 32 coefficients for every lane).
+    "flac_lane_order": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
+                        "symphonia_tpu/ops/flac_dense.py:44"),
     "flac_lpc": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
                  "symphonia_tpu/ops/flac_dense.py:44"),
     "flac_decorrelate": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
@@ -172,8 +189,9 @@ KERNEL_INFO = {
 # in the reference): not required in phase 3.
 OFF_PATH = ("aac_dequant", "vorbis_lap", "pcm_unpack", "rice_decode")
 # The entry step's kernels (phase 6); A2 runs only for short handoff lanes.
-STEP_PATH = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
-             "aac_imdct", "aac_ola", "vorbis_imdct", "vorbis_lap")
+STEP_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
+             "mp3_synth", "aac_imdct", "aac_ola", "vorbis_imdct",
+             "vorbis_lap")
 # Phase 6's full width: FLAC frames, samples, MP3 granules, AAC frames,
 # Vorbis blocks and block size.
 STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
@@ -535,10 +553,46 @@ def bound(nbytes: float, macs: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def bound_int(nbytes: float, macs: float, macs_per_s: float) -> dict:
+    """As :func:`bound` for 32 x 32 + 64-bit integer multiply-adds, which
+    the card issues at another rate than fp32: ``macs_per_s`` is the rate
+    this run measured (:func:`imad_rate`)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = macs / macs_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def imad_rate() -> float:
+    """The card's 32 x 32 + 64-bit multiply-adds a second, measured by the
+    micro-kernel of independent IMAD.WIDE chains in csrc/flac_dense.cu."""
+    import torch
+
+    from symphonia_tpu_torch.ops import _build
+
+    blocks, iters = 132 * 8, 8192
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    fn = _build.lib().flac_imad_rate_launch
+
+    def run():
+        _build.check("imad_rate", fn(out.data_ptr(), blocks, iters,
+                                     torch.cuda.current_stream().cuda_stream))
+
+    return blocks * 256 * iters * 8 / cuda_ms(run, 3) * 1e3
+
+
 # The work of each kernel from its inputs' shapes (bytes, multiply-adds).
-def work_flac_lpc(order, L: int, n: int):
-    o = np.minimum(np.asarray(order, np.int64), n)
-    return 2 * L * n * 4 + L * 35 * 4, float((o * (n - o)).sum())
+# F1's multiply-adds are those of the taps each lane has (32 less its
+# trailing zero coefficients: what the result needs whatever ``order`` says).
+def work_flac_lpc(coefs, L: int, n: int):
+    from symphonia_tpu_torch.ops.flac_dense import active_taps
+
+    taps = active_taps(coefs).sum().item()
+    return 2 * L * n * 4 + L * 35 * 4, float(taps) * n
+
+
+def work_flac_lane_order(L: int):
+    return L * 32 * 4 + 2 * L * 4, 0.0
 
 
 def work_flac_decorrelate(F: int, n: int):
@@ -643,10 +697,70 @@ def phase_env() -> dict:
     return info
 
 
+# The per-case times of F1, in this order (the last two: a lane's taps on
+# 2 and 4 threads; ``ms`` is the split the wrapper chooses).
+F1_CASE_FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "enqueue_ms",
+                  "parts2_ms", "parts4_ms")
+
+
+def _f1_inputs(rng, case: str, L: int, n: int, stride: int):
+    """F1's inputs (res [L, stride], coefs, order, shift, wasted) as CPU
+    tensors: samples +-2^25, coefficients +-2^14, shifts 0-15, wasted 0-3.
+    ``dense``: all 32 coefficients random whatever the order (0-32).
+    ``packer_step``: orders 0-12 as ``entry.example_batch`` draws them,
+    coefficients zero beyond the order, as the packer leaves them.
+    ``packer_mix``: lanes like phase 3's streams, LPC-12, LPC-32, fixed-2
+    (coefficients 2, -1, shift 0) and verbatim (no coefficient).
+    ``ragged``: lane l has l % 33 coefficients."""
+    import torch
+
+    res = rng.integers(-2**25, 2**25, size=(L, stride), dtype=np.int32)
+    coefs = rng.integers(-2**14, 2**14, size=(L, 32), dtype=np.int32)
+    shift = rng.integers(0, 16, size=L, dtype=np.int32)
+    wasted = rng.integers(0, 4, size=L, dtype=np.int32)
+    if case == "dense":
+        order = rng.integers(0, 33, size=L, dtype=np.int32)
+    else:
+        order = {"packer_step": lambda: rng.integers(0, 13, size=L),
+                 "packer_mix": lambda: rng.choice([12, 32, 2, 0], size=L),
+                 "ragged": lambda: np.arange(L) % 33}[case]().astype(np.int32)
+        coefs[np.arange(32)[None, :] >= order[:, None]] = 0
+        if case == "packer_mix":
+            coefs[order == 2, :2] = [2, -1]
+            shift[order == 2] = 0
+    return [torch.from_numpy(a) for a in (res, coefs, order, shift, wasted)]
+
+
+def _lane_order_case(fd, coefs) -> dict:
+    """F1's helper against its twin: the tap counts equal, the order a
+    permutation of the lanes with no tap count rising along it (the order
+    within one count is free)."""
+    import torch
+
+    L = coefs.shape[0]
+    taps, perm = fd.lane_order(coefs)
+    want = fd.active_taps(coefs)
+    torch.cuda.synchronize()
+    along = taps[perm.long()]
+    if not (torch.equal(taps, want) and torch.equal(
+            perm.sort().values, torch.arange(L, dtype=torch.int32,
+                                             device=coefs.device))
+            and bool((along[1:] <= along[:-1]).all())):
+        raise AssertionError("flac_lane_order differs from its twin")
+    return dict(
+        max_abs_err=0, shape=[L, 32], library_ms=None,
+        **bound(*work_flac_lane_order(L)),
+        ms=cuda_ms(lambda: fd.lane_order(coefs), 20),
+        plain_ms=cuda_ms(lambda: fd.lane_permutation(fd.active_taps(coefs)),
+                         20),
+        enqueue_ms=enqueue_ms(lambda: fd.lane_order(coefs), 20))
+
+
 def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     """Each kernel against its twin on the card at the main path's shapes."""
     import torch
 
+    from symphonia_tpu_torch.ops import _build
     from symphonia_tpu_torch.ops import flac_dense as fd
     from symphonia_tpu_torch.ops import mp3_dense as md
 
@@ -654,32 +768,65 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
     rng = np.random.default_rng(SEED)
     out = {}
 
-    # F1: random orders 0-32, shifts 0-15, wasted 0-3; the sums wrap, and
-    # both sides must wrap identically, so the comparison is exact.
-    res = torch.from_numpy(rng.integers(-2**25, 2**25, size=(L, n),
-                                        dtype=np.int32)).to(dev)
-    coefs = torch.from_numpy(rng.integers(-2**14, 2**14, size=(L, 32),
-                                          dtype=np.int32)).to(dev)
-    order = torch.from_numpy(rng.integers(0, 33, size=L,
-                                          dtype=np.int32)).to(dev)
-    shift = torch.from_numpy(rng.integers(0, 16, size=L,
-                                          dtype=np.int32)).to(dev)
-    wasted = torch.from_numpy(rng.integers(0, 4, size=L,
-                                           dtype=np.int32)).to(dev)
-    got = fd.lpc_reconstruct_batch(res, coefs, order, shift, n, wasted=wasted)
-    ref = fd.apply_wasted_bits(
-        fd.lpc_reconstruct_plain(res, coefs, order, shift, n), wasted)
-    torch.cuda.synchronize()
-    err = int((got.long() - ref.long()).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError(f"flac_lpc differs from its twin: {err}")
+    # F1, bit for bit against its twin (the sums wrap, and both sides must
+    # wrap identically): dense random coefficients with orders 0-32; two
+    # packer-shaped draws (coefficients zero beyond ``order``), the entry
+    # step's orders 0-12 and a mix like phase 3's streams; a ragged shape.
+    rate = imad_rate()
+    f1_ms, f1_work = {}, {}
+    for case in ("dense", "packer_step", "packer_mix", "ragged"):
+        Lc, nc = (L // 2 + 37, n - 5) if case == "ragged" else (L, n)
+        args = [t.to(dev) for t in _f1_inputs(
+            rng, case, Lc, nc, nc + 16 if case == "ragged" else nc)]
+        res, coefs, order, shift, wasted = args
+
+        def kernel():
+            return fd.lpc_reconstruct_batch(res, coefs, order, shift, nc,
+                                            wasted=wasted)
+
+        def plain():
+            return fd.apply_wasted_bits(fd.lpc_reconstruct_plain(
+                res, coefs, order, shift, nc), wasted)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"flac_lpc {case} differs from its twin: "
+                f"{int((got.long() - ref.long()).abs().max())}")
+        if case == "ragged":
+            for parts in (2, 4):  # both splits of a lane's taps
+                if not torch.equal(ref, fd.lpc_reconstruct_batch(
+                        res, coefs, order, shift, nc, wasted=wasted,
+                        parts=parts)):
+                    raise AssertionError(f"flac_lpc ragged, {parts} threads "
+                                         "a lane, differs from its twin")
+            continue
+        f1_work[case] = bound_int(*work_flac_lpc(coefs, Lc, nc), rate)
+        f1_ms[case] = (cuda_ms(kernel, 5),
+                       cuda_ms(plain, 1) if case == "dense" else None, None,
+                       f1_work[case]["bound_ms"], enqueue_ms(kernel, 10),
+                       *(cuda_ms(lambda: fd.lpc_reconstruct_batch(
+                           res, coefs, order, shift, nc, wasted=wasted,
+                           parts=parts), 5) for parts in (2, 4)))
+        if case == "packer_mix":
+            out["flac_lane_order"] = _lane_order_case(fd, coefs)
+        if case == "dense":
+            f1_half = cuda_ms(lambda: fd.lpc_reconstruct_batch(
+                res[: L // 2], coefs[: L // 2], order[: L // 2],
+                shift[: L // 2], nc, wasted=wasted[: L // 2]), 5)
+            dense_out = got
     out["flac_lpc"] = dict(
-        max_abs_err=err, shape=[L, n], library_ms=None,
-        **bound(*work_flac_lpc(order.cpu().numpy(), L, n)),
-        ms=cuda_ms(lambda: fd.lpc_reconstruct_batch(
-            res, coefs, order, shift, n, wasted=wasted), 5),
-        plain_ms=cuda_ms(lambda: fd.apply_wasted_bits(
-            fd.lpc_reconstruct_plain(res, coefs, order, shift, n), wasted), 1))
+        max_abs_err=0, shape=[L, n], library_ms=None, **f1_work["dense"],
+        ms=f1_ms["dense"][0], plain_ms=f1_ms["dense"][1],
+        enqueue_ms=f1_ms["dense"][4], half_lanes_ms=f1_half,
+        imad_macs_per_s=rate, ms_by_case_fields=F1_CASE_FIELDS,
+        ms_by_case=_by_case(f1_ms),
+        bound_by_case={k: v["bound_by"] for k, v in f1_work.items()},
+        attributes=_attributes(
+            (f"parts{p}", _build.lib().flac_lpc_attributes, (p,))
+            for p in (2, 4)))
+    got = dense_out
 
     # F2 on F1's output as frames [L/2, 2, n], all four assignments.
     x = got.reshape(L // 2, 2, n)
@@ -1209,14 +1356,43 @@ def phase_vorbis_l12_kernels(L: int = 16384, F: int = 4096) -> dict:
     return out
 
 
+# P1's kernels whose registers, spills and blocks an SM phase 2 reports:
+# (name, bytes a sample, finish, vector path).
+PCM_ATTRIBUTE_CASES = (("s16le", 2, 0, 1), ("s24le", 3, 0, 1),
+                       ("s32le", 4, 0, 1), ("u8", 1, 1, 1),
+                       ("mulaw", 1, 2, 1), ("alaw", 1, 3, 1),
+                       ("s16le_scalar", 2, 0, 0), ("s24le_scalar", 3, 0, 0))
+
+
+def _pcm_edge_shapes(dev, g):
+    """Batches the vector path must not mishandle: rows that start off its
+    alignment (N = 16387: N % 4 and n % 4 nonzero for every sample width),
+    a contiguous view at storage offset 1, one row (whose tail groups are
+    partial), rows shorter than a group, and all 256 byte values."""
+    import torch
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                             generator=g)
+
+    every_byte = torch.arange(256, dtype=torch.uint8, device=dev)
+    return {"[37, 16387]": rand(37, 16387),
+            "[64, 4096] at offset 1": rand(64 * 4096 + 1)[1:].view(64, 4096),
+            "[1, 16387]": rand(1, 16387), "[1, 16384]": rand(1, 16384),
+            "[300, 24]": rand(300, 24), "[5, 3]": rand(5, 3),
+            "[3, 256] every byte": every_byte.repeat(3, 1)}
+
+
 def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
     """P1 against its twin on the card at [B, N] random bytes for each of
     its 18 codecs, bit for bit (float32 compared as int32 bits: random
-    bytes hold NaNs). N = 16384 leaves a trailing byte for 24-bit codecs.
-    The library call (one PyTorch call computing the same function) exists
-    for s16le, s32le and f32le: a reinterpreting view and a copy."""
+    bytes hold NaNs), and at the shapes of ``_pcm_edge_shapes``. N = 16384
+    leaves a trailing byte for 24-bit codecs. The library call (one PyTorch
+    call computing the same function) exists for s16le, s32le and f32le: a
+    reinterpreting view and a copy."""
     import torch
 
+    from symphonia_tpu_torch.ops import _build
     from symphonia_tpu_torch.ops import pcm
 
     dev = torch.device("cuda")
@@ -1229,8 +1405,16 @@ def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
         "pcm_s32le": lambda: x.view(torch.int32).clone(),
         "pcm_f32le": lambda: x.view(torch.float32).clone(),
     }
+    edges = _pcm_edge_shapes(dev, g)
     by_codec = {}
     for codec, (bps, _, _) in pcm.DEVICE_CODECS.items():
+        for name, e in edges.items():
+            got = pcm.decode_pcm_batch(e, codec)
+            ref = pcm.decode_pcm_batch_plain(e, codec)
+            if got.shape != ref.shape or not torch.equal(
+                    got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"pcm_unpack {codec} at {name} differs "
+                                     "from its twin")
         got = pcm.decode_pcm_batch(x, codec)
         ref = pcm.decode_pcm_batch_plain(x, codec)
         torch.cuda.synchronize()
@@ -1242,20 +1426,36 @@ def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
             raise AssertionError(f"pcm_unpack {codec} differs from the "
                                  "library call")
         del got, ref
+        # Kernel and library call in turns (kernel, library, kernel): the
+        # kernel's time is the mean of its two.
+        ms = cuda_ms(lambda: pcm.decode_pcm_batch(x, codec), 20)
+        lib_ms = cuda_ms(library[codec], 20) if codec in library else None
+        ms = 0.5 * (ms + cuda_ms(lambda: pcm.decode_pcm_batch(x, codec), 20))
         by_codec[codec] = dict(
-            ms=cuda_ms(lambda: pcm.decode_pcm_batch(x, codec), 20),
+            ms=ms, library_ms=lib_ms,
             plain_ms=cuda_ms(lambda: pcm.decode_pcm_batch_plain(x, codec), 3),
-            library_ms=(cuda_ms(library[codec], 20) if codec in library
-                        else None),
             **bound(*work_pcm_unpack(B, N, bps)))
+    # The scalar path at full size (a view at storage offset 1).
+    off1 = torch.randint(0, 256, (B * N + 1,), dtype=torch.uint8, device=dev,
+                         generator=g)[1:].view(B, N)
+    scalar_ms = {c: cuda_ms(lambda: pcm.decode_pcm_batch(off1, c), 10)
+                 for c in ("pcm_s16le", "pcm_s24le", "pcm_s32le")}
     main = by_codec["pcm_s16le"]
+    fn = _build.lib().pcm_unpack_attributes
     out = {"pcm_unpack": dict(
         max_abs_err=0, shape=[B, N], ms=main["ms"], plain_ms=main["plain_ms"],
         library_ms=main["library_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"],
         ms_by_case=_by_case({c: [v["ms"], v["plain_ms"], v["library_ms"],
                                  v["bound_ms"]]
-                             for c, v in by_codec.items()}))}
+                             for c, v in by_codec.items()}),
+        share_of_bound={c: round(v["bound_ms"] / v["ms"], 3)
+                        for c, v in by_codec.items()},
+        scalar_path=_by_case({c: [v] for c, v in scalar_ms.items()}),
+        edge_shapes=list(edges),
+        attributes=_attributes((name, fn, (bps, 0, fin, vec))
+                               for name, bps, fin, vec in
+                               PCM_ATTRIBUTE_CASES))}
     print("phase 2 pcm_unpack vs twin (ms: kernel, plain, library, bound):",
           json.dumps(_rounded(out)), flush=True)
     return out
@@ -1634,14 +1834,19 @@ def phase_rice_bench() -> dict:
     return info
 
 
-def _step_bound(host, size) -> dict:
+def _step_bound(host, size, imad_macs_per_s: float) -> dict:
     """The entry step's bound: the sum of its stages' bounds (they run one
-    after another), from this run's inputs; A1 and V1 at their half
+    after another), from this run's inputs; F1's from the taps its lanes
+    have at the measured integer multiply-add rate, A1 and V1 at their half
     products, and the sum with their dense products beside it."""
+    import torch
+
     F, N, G, A, V, n1 = (size[k] for k in ("F", "N", "G", "A", "V", "n1"))
     n_short = int((host[13] == 2).sum())
+    f1 = bound_int(*work_flac_lpc(torch.from_numpy(host[1]), 2 * F, N),
+                   imad_macs_per_s)
     stages = {
-        "flac_lpc": work_flac_lpc(host[2], 2 * F, N),
+        "flac_lane_order": work_flac_lane_order(2 * F),
         "flac_decorrelate": work_flac_decorrelate(F, N),
         "mp3_hybrid": work_mp3_hybrid(G, 2),
         "mp3_synth": work_mp3_synth(G, 2),
@@ -1656,18 +1861,19 @@ def _step_bound(host, size) -> dict:
                  aac_imdct_short=work_aac_imdct(8 * n_short, 128, False,
                                                 True),
                  vorbis_imdct=work_vorbis_imdct(V, n1, True))
-    by_stage = {k: bound(*w) for k, w in stages.items()}
+    by_stage = {"flac_lpc": f1, **{k: bound(*w) for k, w in stages.items()}}
     return {"bound_ms": sum(b["bound_ms"] for b in by_stage.values()),
-            "dense_bound_ms": sum(bound(*w)["bound_ms"]
-                                  for w in dense.values()),
+            "dense_bound_ms": f1["bound_ms"] + sum(
+                bound(*w)["bound_ms"] for w in dense.values()),
             "bound_by_stage": {k: [round(b["bound_ms"], 4), b["bound_by"]]
                                for k, b in by_stage.items()}}
 
 
-def phase_entry_step() -> dict:
+def phase_entry_step(imad_macs_per_s: float) -> dict:
     """The combined decode step (K14) at full width on the card against the
     same step of the plain twins on the card, then a small step with
-    EIGHT_SHORT handoff lanes (A2's path)."""
+    EIGHT_SHORT handoff lanes (A2's path). ``imad_macs_per_s`` is phase
+    2's measured integer multiply-add rate, for F1's bound."""
     import torch
 
     from symphonia_tpu_torch import entry
@@ -1730,7 +1936,8 @@ def phase_entry_step() -> dict:
     info = {
         "size": STEP_SIZE, "seed": SEED, "input_build_s": round(build_s, 2),
         "output_shapes": shapes, "step_ms": step_ms, "plain_step_ms": plain_ms,
-        **_step_bound(host, STEP_SIZE), "launches": launches,
+        **_step_bound(host, STEP_SIZE, imad_macs_per_s),
+        "launches": launches,
         "max_abs_err_vs_plain": errs, "bit_exact_vs_plain": exact,
         "handoff_launches": handoff_launches,
         "handoff_max_abs_err_vs_plain": handoff_errs,
@@ -1768,7 +1975,7 @@ def main() -> int:
     del inputs
     rb = phase_rice_bench()
     kern["rice_decode"] = rb["kernel"]
-    st = phase_entry_step()
+    st = phase_entry_step(kern["flac_lpc"]["imad_macs_per_s"])
     paths = {"decode_many": sl["launches"], "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"]}
@@ -1788,9 +1995,11 @@ def main() -> int:
                      "library_ms": k["library_ms"], "shape": k["shape"],
                      # A1 and V1: cuBLAS on their half product; A1, V1, M2
                      # and L1: the dense product's bound; M2 and L1: the
-                     # device time with the host's launch cost out.
+                     # device time with the host's launch cost out; F1, its
+                     # helper and M2: the host's time to enqueue a call.
                      **{f: k[f] for f in ("library_half_ms", "dense_bound_ms",
-                                          "graph_ms") if f in k}})
+                                          "graph_ms", "enqueue_ms")
+                        if f in k}})
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

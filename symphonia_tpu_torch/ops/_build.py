@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
+KERNELS = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
            "mpa_l12_synth", "vorbis_lap", "pcm_unpack", "rice_decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -50,8 +50,13 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # C signatures (csrc/*.cu); every entry returns cudaGetLastError().
 _SIGNATURES = {
-    # res, res_stride, coefs, order, shift, wasted, out, L, n, stream
-    "flac_lpc_launch": [_P, _I64, _P, _P, _P, _P, _P, _I64, _I, _P],
+    # res, res_stride, coefs, order, shift, wasted, perm, taps, out, L, n,
+    # parts, stream
+    "flac_lpc_launch": [_P, _I64] + [_P] * 7 + [_I64, _I, _I, _P],
+    # coefs, taps, perm, scratch, L, stream
+    "flac_lane_order_launch": [_P, _P, _P, _P, _I64, _P],
+    # out, blocks, iters, stream (the integer multiply-add rate, measured)
+    "flac_imad_rate_launch": [_P, _I, _I, _P],
     # x, assign, out, F, n, stream
     "flac_decorrelate_launch": [_P, _P, _P, _I64, _I, _P],
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
@@ -73,9 +78,8 @@ _SIGNATURES = {
     "mpa_l12_synth_launch": [_P] * 6 + [_I, _I, _I, _P],
     # t, w, pcm, V, n1, stream
     "vorbis_lap_launch": [_P] * 3 + [_I64, _I, _P],
-    # in, table (None unless G.711), out, B, N, bps, big_endian, finish,
-    # stream
-    "pcm_unpack_launch": [_P] * 3 + [_I64, _I64, _I, _I, _I, _P],
+    # in, out, B, N, bps, big_endian, finish, stream
+    "pcm_unpack_launch": [_P, _P, _I64, _I64, _I, _I, _I, _P],
     # words, W, cur, param, out, cur_end, B, n, stream
     "rice_decode_launch": [_P, _I64] + [_P] * 4 + [_I64, _I, _P],
 }

@@ -15,7 +15,9 @@ native extraction pads rows by 16 columns).
 Each public op is a wrapper: on CPU tensors it runs the plain PyTorch twin
 here, on CUDA tensors it launches the hand-written kernel
 (``csrc/flac_dense.cu``: F1 ``flac_lpc`` fuses the recurrence and the
-wasted-bits shift, F2 ``flac_decorrelate``) or raises. The 64-bit
+wasted-bits shift, behind its helper ``flac_lane_order``, which counts each
+lane's taps and sorts the lanes by them; F2 ``flac_decorrelate``) or
+raises. The 64-bit
 accumulator is native int64 on both (the reference's 32-bit-limb
 emulation, ``ops/i64emu.py``, existed only because the TPU has no int64).
 """
@@ -114,14 +116,68 @@ def decorrelate_plain(x: torch.Tensor, assignment: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def active_taps(coefs: torch.Tensor) -> torch.Tensor:
+    """int32 [L]: 32 less the trailing zero coefficients of each row of
+    ``coefs`` [L, 32]. The recurrence multiplies all 32 coefficients
+    whatever ``order`` says, so this, not ``order``, is the number of taps a
+    lane needs for a result equal to the full sum, for any input."""
+    idx = torch.arange(1, MAX_ORDER + 1, dtype=torch.int32,
+                       device=coefs.device)
+    return ((coefs != 0).to(torch.int32) * idx).amax(dim=1)
+
+
+def lane_permutation(taps: torch.Tensor) -> torch.Tensor:
+    """int32 [L]: the lanes ordered by tap count, most taps first, so that
+    the lanes of a warp need alike tap counts and the longest warps start
+    first. No row is moved: F1 reads and writes rows through this index."""
+    return torch.argsort(taps, descending=True).to(torch.int32)
+
+
+def lane_order(coefs: torch.Tensor) -> tuple:
+    """(taps, perm) of ``coefs`` [L, 32] int32, both int32 [L]:
+    :func:`active_taps` and a :func:`lane_permutation` of it. On CUDA
+    tensors F1's helper ``flac_lane_order`` (two small kernels behind one C
+    entry point) computes both; its order within one tap count may differ
+    from the twin's, and F1's result does not depend on it. On CPU tensors
+    the two plain functions do."""
+    if _build.device_type(coefs) == "cpu":
+        taps = active_taps(coefs)
+        return taps, lane_permutation(taps)
+    dev = _build.require_cuda(coefs)
+    if coefs.dim() != 2 or coefs.shape[1] != MAX_ORDER or (
+            coefs.dtype != torch.int32):
+        raise ValueError("coefs must be int32 [L, 32]")
+    L = coefs.shape[0]
+    taps = torch.empty(L, dtype=torch.int32, device=dev)
+    perm = torch.empty(L, dtype=torch.int32, device=dev)
+    # Per-block counts of each tap count (33 for every 256 lanes).
+    scratch = torch.empty((L + 255) // 256 * (MAX_ORDER + 1),
+                          dtype=torch.int32, device=dev)
+    err = _build.lib().flac_lane_order_launch(
+        coefs.data_ptr(), taps.data_ptr(), perm.data_ptr(),
+        scratch.data_ptr(), L, _build.stream_ptr(dev))
+    _build.LAUNCHES["flac_lane_order"] += 1
+    _build.check("flac_lane_order", err)
+    return taps, perm
+
+
+def lane_parts(L: int) -> int:
+    """Threads that share a lane's taps in F1 (2 or 4): four where there
+    are few lanes, so that each warp scheduler of the card (132 SMs of 4)
+    has about two warps to switch between. On the H100 two threads a lane
+    won at 16384 lanes and above, four at 8192 and below."""
+    return 4 if L <= 12288 else 2
+
+
 def lpc_reconstruct_batch(res: torch.Tensor, coefs: torch.Tensor,
                           order: torch.Tensor, shift: torch.Tensor,
                           n_samples: int,
-                          wasted: torch.Tensor | None = None
-                          ) -> torch.Tensor:
+                          wasted: torch.Tensor | None = None, *,
+                          parts: int | None = None) -> torch.Tensor:
     """Reconstruct ``n_samples`` samples per lane -> int32 [L, n_samples],
     then apply ``wasted`` (None: no shift). res [L, stride >= n_samples]
-    with unit column stride; coefs [L, 32]; order/shift/wasted [L]."""
+    with unit column stride; coefs [L, 32]; order/shift/wasted [L].
+    ``parts`` (CUDA only) overrides :func:`lane_parts`."""
     if res.dim() != 2 or res.shape[1] < n_samples or res.stride(1) != 1:
         raise ValueError("res must be [L, stride >= n_samples], unit "
                          "column stride")
@@ -141,11 +197,16 @@ def lpc_reconstruct_batch(res: torch.Tensor, coefs: torch.Tensor,
     dev = _build.require_cuda(coefs, order, shift, wasted)
     if res.device != dev:
         raise ValueError("res and lane parameters on different devices")
+    parts = lane_parts(L) if parts is None else parts
+    if parts not in (2, 4):
+        raise ValueError("parts must be 2 or 4")
     out = torch.empty((L, n_samples), dtype=torch.int32, device=dev)
+    taps, perm = lane_order(coefs)
     lib = _build.lib()
     err = lib.flac_lpc_launch(
         res.data_ptr(), res.stride(0), coefs.data_ptr(), order.data_ptr(),
-        shift.data_ptr(), wasted.data_ptr(), out.data_ptr(), L, n_samples,
+        shift.data_ptr(), wasted.data_ptr(), perm.data_ptr(),
+        taps.data_ptr(), out.data_ptr(), L, n_samples, parts,
         _build.stream_ptr(dev))
     _build.LAUNCHES["flac_lpc"] += 1
     _build.check("flac_lpc", err)

@@ -172,9 +172,11 @@ def decode_pcm_np(
 # Batch unpack: P1 pcm_unpack (K12) and its plain twin
 # ---------------------------------------------------------------------------
 
-# The kernel's finishing step (csrc/pcm.cu): sign-extend from 8 * bps bits,
-# subtract 1 << (8 * bps - 1) in uint32 (for u32 that is the reference's
-# sign-bit flip), or look the byte up in a G.711 table.
+# The finishing step: sign-extend from 8 * bps bits, subtract
+# 1 << (8 * bps - 1) in uint32 (for u32 that is the reference's sign-bit
+# flip), or expand a G.711 byte (the twin looks it up in the tables above;
+# the kernel, csrc/pcm.cu, computes the tables' formulas in registers and
+# is told which law by _KERNEL_FINISH).
 SIGNED, UNSIGNED, TABLE = 0, 1, 2
 
 # codec -> (bytes per sample, big endian, finish); f32 is the signed 32-bit
@@ -187,6 +189,7 @@ DEVICE_CODECS: Dict[str, Tuple[int, bool, int]] = {
     "pcm_f32le": (4, False, SIGNED), "pcm_f32be": (4, True, SIGNED),
 }
 _G711 = {"pcm_mulaw": MULAW_TABLE, "pcm_alaw": ALAW_TABLE}
+_KERNEL_FINISH = {"pcm_mulaw": 2, "pcm_alaw": 3}
 
 
 def _layout(batch_u8, codec: str) -> Tuple[int, bool, int]:
@@ -239,11 +242,9 @@ def decode_pcm_batch(batch_u8: torch.Tensor, codec: str) -> torch.Tensor:
     B, N = x.shape
     out = torch.empty((B, N // bps), dtype=torch.int32, device=dev)
     if out.numel():
-        table = (torch.from_numpy(_G711[codec].astype(np.int32)).to(dev)
-                 if fin == TABLE else None)
         err = _build.lib().pcm_unpack_launch(
-            x.data_ptr(), None if table is None else table.data_ptr(),
-            out.data_ptr(), B, N, bps, int(be), fin, _build.stream_ptr(dev))
+            x.data_ptr(), out.data_ptr(), B, N, bps, int(be),
+            _KERNEL_FINISH.get(codec, fin), _build.stream_ptr(dev))
         _build.LAUNCHES["pcm_unpack"] += 1
         _build.check("pcm_unpack", err)
     return out.view(torch.float32) if codec.startswith("pcm_f32") else out

@@ -294,9 +294,11 @@ def test_build_hash_follows_sources():
 
 @pytest.mark.parametrize("kernel", _build.KERNELS)
 def test_every_kernel_has_a_c_entry_point(kernel):
-    # V2, P1 and R1 among them: a counted launch and a declared signature.
-    assert len(_build.KERNELS) == 12
-    assert {"vorbis_lap", "pcm_unpack", "rice_decode"} <= set(_build.KERNELS)
+    # V2, P1, R1 and F1's helper among them: a counted launch and a declared
+    # signature.
+    assert len(_build.KERNELS) == 13
+    assert {"vorbis_lap", "pcm_unpack", "rice_decode",
+            "flac_lane_order"} <= set(_build.KERNELS)
     assert f"{kernel}_launch" in _build._SIGNATURES
     assert any(f"{kernel}_launch(" in s.read_text()
                for s in _build._sources() if s.suffix == ".cu")

@@ -130,3 +130,121 @@ def test_demuxed_packets_deinterleave_to_decode_pcm_np(kind):
         want = port.decode_pcm_np(p, codec, ch, params.bits_per_coded_sample)
         assert planar.dtype == want.dtype
         np.testing.assert_array_equal(_bits(planar), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# The shapes the kernel's vector path must not mishandle (the twin against
+# the reference here; the kernel against the twin on the card)
+# ---------------------------------------------------------------------------
+
+
+def _misaligned(case):
+    """A [B, N] uint8 tensor (one of them a view at storage offset 1)."""
+    rng = np.random.default_rng(len(case))
+    if case == "rows_misaligned":      # N % 4 != 0 and n % 4 != 0, any bps
+        shape = (5, 16387)
+    elif case == "storage_offset_1":
+        flat = rng.integers(0, 256, size=6 * 1024 + 1, dtype=np.uint8)
+        return torch.from_numpy(flat)[1:].view(6, 1024)
+    elif case == "one_row":
+        shape = (1, 4099)
+    else:
+        shape = (7, 16)                # short rows
+    return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8))
+
+
+@pytest.mark.parametrize("case", ["rows_misaligned", "storage_offset_1",
+                                  "one_row", "short_rows"])
+@pytest.mark.parametrize("codec", CODECS)
+def test_twin_at_misaligned_shapes(codec, case):
+    t = _misaligned(case)
+    if case == "storage_offset_1":
+        assert t.storage_offset() == 1 and t.is_contiguous()
+    want = ref.decode_pcm_batch_jax(jnp.asarray(t.numpy()), codec)
+    _same(port.decode_pcm_batch(t, codec), want)
+
+
+def _mulaw_in_registers(u):
+    """The kernel's mu-law expansion (csrc/pcm.cu ``finish``), in numpy
+    uint32 / int32 arithmetic."""
+    v = ~u.astype(np.uint32)
+    t = ((((v & 0x0F) << 3) + 0x84) << ((v & 0x70) >> 4)) - 0x84
+    t = t.astype(np.int32)
+    return np.where(v & 0x80, -t, t)
+
+
+def _alaw_in_registers(a):
+    """The kernel's A-law expansion, branch-free as the kernel has it."""
+    v = a.astype(np.uint32) ^ 0x55
+    seg = (v & 0x70) >> 4
+    t = (((v & 0x0F) << 4) + np.where(seg == 0, 8, 0x108).astype(np.uint32)) \
+        << np.where(seg > 1, seg - 1, 0).astype(np.uint32)
+    t = t.astype(np.int32)
+    return np.where(v & 0x80, t, -t)
+
+
+@pytest.mark.parametrize("codec,formula,table", [
+    ("pcm_mulaw", _mulaw_in_registers, port.MULAW_TABLE),
+    ("pcm_alaw", _alaw_in_registers, port.ALAW_TABLE),
+])
+@pytest.mark.parametrize("sign_extended", [False, True])
+def test_g711_in_registers_equals_tables(codec, formula, table,
+                                         sign_extended):
+    # All 256 bytes. The kernel hands the formula the byte sign-extended
+    # (only its low byte may matter), so both forms must give the table.
+    u = np.arange(256, dtype=np.uint32)
+    if sign_extended:
+        u = u.astype(np.uint8).astype(np.int8).astype(np.int32).astype(
+            np.uint32)
+    got = formula(u)
+    np.testing.assert_array_equal(got, table.astype(np.int32))
+    x = np.arange(256, dtype=np.uint8).reshape(4, 64)
+    _same(port.decode_pcm_batch(torch.from_numpy(x), codec),
+          got.reshape(4, 64).astype(np.int32))
+    _same(port.decode_pcm_batch(torch.from_numpy(x), codec),
+          ref.decode_pcm_batch_jax(jnp.asarray(x), codec))
+
+
+@pytest.mark.parametrize("bps,be", [(1, False), (2, False), (2, True),
+                                    (3, False), (3, True), (4, False),
+                                    (4, True)])
+def test_byte_perm_selectors_extract_sign_extended_samples(bps, be):
+    # The kernel's __byte_perm selectors (csrc/pcm.cu ``selector``),
+    # modelled: result byte i of sample k is a byte of the pair of words
+    # holding it, the bytes above the sample replicate its sign; a group of
+    # four samples from 4 * bps random bytes equals the twin's signed codec.
+    rng = np.random.default_rng(bps * 2 + be)
+    raw = rng.integers(0, 256, size=(50, 4 * bps), dtype=np.uint8)
+    raw[0] = 0x80
+    raw[1] = 0x7F
+    words = raw.view("<u4")
+    words = np.concatenate([words, np.zeros((50, 1), np.uint32)], axis=1)
+    got = np.zeros((50, 4), np.int64)
+    for k in range(4):
+        wi, f = k * bps // 4, k * bps % 4
+        pair = (words[:, wi].astype(np.uint64)
+                | (words[:, wi + 1].astype(np.uint64) << np.uint64(32)))
+        out = np.zeros(50, np.uint32)
+        for i in range(4):
+            if i < bps:
+                src, sign = (f + bps - 1 - i if be else f + i), False
+            else:
+                src, sign = (f if be else f + bps - 1), True
+            byte = ((pair >> np.uint64(8 * src)) & np.uint64(0xFF)).astype(
+                np.uint32)
+            if sign:
+                byte = np.where(byte & 0x80, 0xFF, 0).astype(np.uint32)
+            out |= byte << np.uint32(8 * i)
+        got[:, k] = out.astype(np.int32)
+    name = {1: "pcm_s8", 2: "pcm_s16", 3: "pcm_s24", 4: "pcm_s32"}[bps]
+    codec = name if bps == 1 else name + ("be" if be else "le")
+    want = port.decode_pcm_batch_plain(torch.from_numpy(raw), codec).numpy()
+    np.testing.assert_array_equal(got, want)
+    # ... and the unsigned finish is the sign-extended word with its sign
+    # bit and everything above flipped.
+    flip = (0xFFFFFFFF << (8 * bps - 1)) & 0xFFFFFFFF
+    ucodec = codec.replace("pcm_s", "pcm_u")
+    uwant = port.decode_pcm_batch_plain(torch.from_numpy(raw), ucodec).numpy()
+    np.testing.assert_array_equal(
+        (got.astype(np.int64) & 0xFFFFFFFF ^ flip).astype(np.uint32).astype(
+            np.int32), uwant)
