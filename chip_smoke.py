@@ -11,7 +11,15 @@ Phases (one line each; any failure raises and exits non-zero):
      its plain PyTorch twin on the card at the main path's shapes, with
      CUDA-event times for both; the MP3 dense stage against the reference's
      numpy oracle on a small input, and chained over two calls against one
-     call; A1 and V1 (half of each IMDCT product, mirrored in the
+     call; M1 (a warp a run of granules, the product blocked in registers)
+     also where its runs end (G = 1, 2, 3 and off a multiple of the run, C =
+     1, boundaries at g = 0 and at a run's first and last granule, a block
+     type with no matrix), equal bit for bit at every run length, with its
+     device time by run length at three sizes, its registers, spills and
+     blocks per SM; A3 (a block a lane, four samples a thread) bit for bit
+     at 1, 2, 3 and 257 lanes with sequence starts everywhere, nowhere and
+     at random and with every lane EIGHT_SHORT, its registers, spills and
+     blocks per SM; A1 and V1 (half of each IMDCT product, mirrored in the
      epilogue) with a +0.0 and a -0.0 input row whose outputs must all be
      +0.0, bit for bit against their dense twins (A1 long, with and without
      its prologue, and short, V1 n = 2048; the other V1 sizes reported),
@@ -907,11 +915,30 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
         raise AssertionError(f"mp3 chained calls vs one call: {e_chunks}")
     chunks_bits = (_bits_equal(joined, chain[0])
                    and _bits_equal(second[2], chain[2]))
+    e_m1_edges = _m1_edge_cases(md, dense, rng, dev)
+    e_m1 = max(e_m1, e_m1_edges)
+    # Device time by run length (granules a warp takes in a row), at G, a
+    # quarter of it and a short call: the wrapper's rule (md.run_length)
+    # rests on these.
+    cuts = [tuple(t[:g].contiguous() for t in hyb_args[:4]) + hyb_args[4:]
+            for g in (G // 4, 64)]
+    by_run = {f"G{a[0].shape[0]}_run{r}": [graph_ms(
+        lambda: md.mp3_hybrid(*a, run=r), 20)]
+        for a in [hyb_args] + cuts for r in md.RUN_LENGTHS}
     out["mp3_hybrid"] = dict(
         max_abs_err=e_m1, shape=[G, C, 576], library_ms=None,
         **bound(*work_mp3_hybrid(G, C)),
         ms=cuda_ms(lambda: md.mp3_hybrid(*hyb_args), 20),
-        plain_ms=cuda_ms(lambda: md.mp3_hybrid_plain(*hyb_args), 5))
+        plain_ms=cuda_ms(lambda: md.mp3_hybrid_plain(*hyb_args), 5),
+        enqueue_ms=enqueue_ms(lambda: md.mp3_hybrid(*hyb_args), 20),
+        graph_ms=graph_ms(lambda: md.mp3_hybrid(*hyb_args), 20),
+        run=md.run_length(G, C), short_run=md.run_length(64, C),
+        graph_ms_by_run=_by_case(by_run),
+        bits_equal_twin=(_bits_equal(S, S_ref)
+                         and _bits_equal(tail, tail_ref)),
+        max_abs_err_edge_shapes=e_m1_edges,
+        attributes=_attributes((("mp3_hybrid",
+                                 _build.lib().mp3_hybrid_attributes, ()),)))
     # The library call: cuBLAS fp32 on the reference's dense product with
     # the combined polyphase matrix (its time, not its overlap-add).
     poly_t = torch.from_numpy(md._polyphase_combined_matrix()).to(dev).t()
@@ -944,6 +971,53 @@ def phase_kernels(L: int = 16384, n: int = 4112, G: int = 4096) -> dict:
          "mp3_chunks_vs_one_call": e_chunks,
          "mp3_chunks_bits_equal_one_call": chunks_bits}), flush=True)
     return out
+
+
+def _m1_edge_cases(md, dense, rng, dev) -> float:
+    """M1 against its twin at the shapes where its runs end: G = 1, 2, 3,
+    G not a multiple of the run, C = 1, a boundary at g = 0, at the first
+    and at the last granule of a run, a block type outside 0..3 (the zero
+    matrix), with and without a carried tail, at every run length and the
+    wrapper's own. Returns the largest error (bar 2e-5); S and the tail
+    must not depend on the run by any bit."""
+    import torch
+
+    worst = 0.0
+    for G, C, cuts, carried in ((1, 2, [], True), (1, 1, [0], True),
+                                (2, 2, [1], False), (3, 1, [], True),
+                                (11, 2, [0, 4, 7], True),
+                                (37, 1, [8, 15, 16, 36], False),
+                                (64, 2, [32], True)):
+        x = torch.from_numpy((rng.standard_normal((G, C, 576)) * 0.1)
+                             .astype(np.float32)).to(dev)
+        bt_np = rng.integers(0, 4, size=(G, C)).astype(np.int32)
+        mixed = torch.from_numpy((bt_np == 2)
+                                 & (rng.random((G, C)) < 0.5)).to(dev)
+        bt_np[G // 2, 0] = 5  # no matrix: zeros
+        bt_np[0, C - 1] = -1
+        bt = torch.from_numpy(bt_np).to(dev)
+        boundary = torch.zeros(G, dtype=torch.bool, device=dev)
+        boundary[cuts] = True
+        ht0 = (torch.from_numpy((rng.standard_normal((C, 32, 18)) * 0.1)
+                                .astype(np.float32)).to(dev)
+               if carried else None)
+        args = (x, bt, mixed, boundary if cuts else None, ht0, dense.hybrid,
+                dense.cs, dense.ca, dense.finv)
+        S_ref, tail_ref = md.mp3_hybrid_plain(*args)
+        S0, tail0 = md.mp3_hybrid(*args)
+        torch.cuda.synchronize()
+        err = max(float((S0 - S_ref).abs().max()),
+                  float((tail0 - tail_ref).abs().max()))
+        if not (err <= 2e-5):
+            raise AssertionError(f"mp3_hybrid [{G}, {C}, 576], boundaries "
+                                 f"{cuts}: {err} > 2e-5")
+        for run in md.RUN_LENGTHS:
+            S, tail = md.mp3_hybrid(*args, run=run)
+            if not (_bits_equal(S, S0) and _bits_equal(tail, tail0)):
+                raise AssertionError(f"mp3_hybrid [{G}, {C}, 576] at run "
+                                     f"{run} differs from the default run")
+        worst = max(worst, err)
+    return worst
 
 
 def _rounded(out: dict) -> dict:
@@ -1048,6 +1122,7 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
 
     from symphonia_tpu_torch import native
     from symphonia_tpu_torch.codecs.aac import subband_info
+    from symphonia_tpu_torch.ops import _build
     from symphonia_tpu_torch.ops import aac_dense as ad
 
     dev = torch.device("cuda")
@@ -1184,12 +1259,38 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         if not np.array_equal(small[sl].reshape(-1), chain):
             raise AssertionError(f"aac_ola differs from window_ola_chain "
                                  f"(sequence {k})")
+    # ... and at a few lanes: L = 1, 2, 3 and 257, sequence starts
+    # everywhere, nowhere (but lane 0) and at random, and every lane
+    # EIGHT_SHORT.
+    for Le in (1, 2, 3, 257):
+        for starts in ("all", "none", "random"):
+            for all_short in (False, True):
+                e_seq = (np.full(Le, 2) if all_short
+                         else rng.integers(0, 4, Le)).astype(np.int32)
+                e_first = {"all": np.ones(Le, bool),
+                           "none": np.zeros(Le, bool),
+                           "random": rng.random(Le) < 0.3}[starts]
+                e_args = (t((rng.standard_normal((Le, 2048)) * 0.05)
+                            .astype(np.float32)), t(e_seq),
+                          t(rng.integers(0, 2, Le).astype(np.int32)),
+                          t(rng.integers(0, 2, Le).astype(np.int32)),
+                          t(e_first))
+                if not _bits_equal(dense.ola(*e_args), ad.aac_ola_plain(
+                        *e_args, *dense.ola_tables)):
+                    raise AssertionError(
+                        f"aac_ola differs from its twin at L = {Le}, "
+                        f"starts {starts}, all short {all_short}")
     out["aac_ola"] = dict(
         max_abs_err=float((got - twin).abs().max()), shape=[L, 2048],
         library_ms=None, **bound(*work_aac_ola(L)),
         ms=cuda_ms(lambda: dense.ola(pcm, *lanes), 20),
         plain_ms=cuda_ms(lambda: ad.aac_ola_plain(
-            pcm, *lanes, *dense.ola_tables), 5))
+            pcm, *lanes, *dense.ola_tables), 5),
+        enqueue_ms=enqueue_ms(lambda: dense.ola(pcm, *lanes), 20),
+        graph_ms=graph_ms(lambda: dense.ola(pcm, *lanes), 20),
+        bits_equal_twin=True, edge_lanes=[1, 2, 3, 257],
+        attributes=_attributes((("aac_ola",
+                                 _build.lib().aac_ola_attributes, ()),)))
     print("phase 2 aac kernels vs twins:", json.dumps(
         {**_rounded(out),
          **errs, "bits_equal_twin": bits, "zero_outputs_positive": True,
@@ -1994,11 +2095,15 @@ def main() -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "shape": k["shape"],
                      # A1 and V1: cuBLAS on their half product; A1, V1, M2
-                     # and L1: the dense product's bound; M2 and L1: the
-                     # device time with the host's launch cost out; F1, its
-                     # helper and M2: the host's time to enqueue a call.
+                     # and L1: the dense product's bound; M1, M2, L1 and
+                     # A3: the device time with the host's launch cost out;
+                     # F1, its helper, M1, M2 and A3: the host's time to
+                     # enqueue a call; M1 and A3: bit-equality with the
+                     # twin; F1, P1, M1 and A3: registers, spills and blocks
+                     # an SM.
                      **{f: k[f] for f in ("library_half_ms", "dense_bound_ms",
-                                          "graph_ms", "enqueue_ms")
+                                          "graph_ms", "enqueue_ms",
+                                          "bits_equal_twin", "attributes")
                         if f in k}})
     print(env["card"])
     print(json.dumps({"kernels": rows}))

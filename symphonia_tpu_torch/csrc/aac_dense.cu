@@ -37,19 +37,32 @@
 // (dequant_one); it reads the table through the read-only cache. Bound by
 // memory: 2 B of qbuf and 4 B of coeffs in, 4 B out per coefficient.
 //
-// A3 aac_ola replaces _ola_jax (:209, K8): one thread per output sample of
+// A3 aac_ola replaces _ola_jax (:209, K8):
 //   out[l, i] = head(l, i) + (l == 0 || first[l] ? 0 : delay(l - 1, i))
 // over pcm [L, 2048] (short frames hold their 8 x 256 windows flattened).
 // head and delay are frame-local window products selected by (seq, shape,
 // prev_shape); for EIGHT_SHORT frames they are slices of the in-frame 8 x
 // 256 overlap-add at hop 128, where each position sums at most two windows.
-// A block does not wait for lane l-1's block: each thread recomputes
-// delay(l - 1, i) from pcm[l - 1], so there is no carried state and no
-// order between blocks, and one launch covers many sequences (first[l]
-// marks where one starts). Bound by memory (8 KB of pcm read, 4 KB written
-// per lane, twice-read rows hit L2). The reference asserts it bit for bit
-// against the sequential chain, and nvcc contracts a * b + c into one fused
-// multiply-add by default, which rounds once instead of twice: every
+// A block does not wait for lane l-1's block: it recomputes delay(l - 1, .)
+// from pcm[l - 1], so there is no carried state and no order between
+// blocks, and one launch covers many sequences (first[l] marks where one
+// starts). Bound by memory: a lane's head takes one half of its pcm row
+// and the next lane's delay the other half (long lanes: p[0:1024] and
+// p[1024:2048]; short lanes: positions 0-575 and 576-1151 of the in-frame
+// sum), so every pcm element is read once, 8 KB a lane, and 4 KB written.
+// The first kernel made one output a thread: each thread loaded up to
+// seven per-lane scalars before it knew which words to load, then moved
+// 4-byte words, about eleven load instructions for four bytes of output;
+// instruction count and latency, not traffic, held it under half of the
+// bytes bound. This kernel gives a lane one 256-thread block: the lane's
+// and its predecessor's scalars are loaded once a thread, all seven at
+// once, and the choice of path (long or short, which table rows) is the
+// block's; a thread makes four consecutive outputs from 16-byte loads of
+// pcm and of the window rows and one 16-byte store. Every region edge (448,
+// 576, the 128-sample hop) is a multiple of four, so a group of four never
+// straddles a region or a short window. The reference asserts K8 bit for
+// bit against the sequential chain, and nvcc contracts a * b + c into one
+// fused multiply-add by default, which rounds once instead of twice: every
 // product and sum here is an explicit __fmul_rn / __fadd_rn, in the
 // reference's order.
 
@@ -204,67 +217,88 @@ __global__ void aac_dequant_kernel(const float* __restrict__ coeffs,
 
 // ----- A3 -------------------------------------------------------------
 
-// Position j in [0, 1152) of an EIGHT_SHORT frame's in-frame overlap-add:
-// window k = j / 128 contributes its left half, window k - 1 its right
-// half, summed right + left as the reference's accumulation does.
-__device__ __forceinline__ float short_sum(const float* __restrict__ p,
-                                           int j, const float* lw0,
-                                           const float* lw,
-                                           const float* rw) {
-  const int k = j >> 7, t = j & 127;
-  if (k == 0) return __fadd_rn(0.f, __fmul_rn(p[t], lw0[t]));
-  const float right = __fmul_rn(p[(k - 1) * 256 + 128 + t], rw[t]);
-  if (k == 8) return right;
-  return __fadd_rn(right, __fmul_rn(p[k * 256 + t], lw[t]));
+constexpr int kOlaThreads = 256;  // four outputs each: one lane a block
+static_assert(kOlaThreads * 4 == kLong, "a block covers a lane");
+static_assert(kOlaThreads == simt_gemm::kThreads, "attributes' block");
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-__global__ void aac_ola_kernel(
+__device__ __forceinline__ float4 mul4(const float4& a, const float4& b) {
+  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y),
+                     __fmul_rn(a.z, b.z), __fmul_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// Positions j .. j + 3 (j % 4 == 0) in [0, 1152) of an EIGHT_SHORT frame's
+// in-frame overlap-add: window k = j / 128 contributes its left half,
+// window k - 1 its right half, summed right + left as the reference's
+// accumulation does. The four share k.
+__device__ __forceinline__ float4 short_sum4(const float* __restrict__ p,
+                                             int j, const float* lw0,
+                                             const float* lw,
+                                             const float* rw) {
+  const int k = j >> 7, t = j & 127;
+  if (k == 0)
+    return add4(make_float4(0.f, 0.f, 0.f, 0.f),
+                mul4(load4(p + t), load4(lw0 + t)));
+  const float4 right = mul4(load4(p + (k - 1) * 256 + 128 + t), load4(rw + t));
+  if (k == 8) return right;
+  return add4(right, mul4(load4(p + k * 256 + t), load4(lw + t)));
+}
+
+__global__ void __launch_bounds__(kOlaThreads) aac_ola_kernel(
     const float* __restrict__ pcm, const int32_t* __restrict__ seqs,
     const int32_t* __restrict__ shapes,
     const int32_t* __restrict__ prev_shapes,
     const uint8_t* __restrict__ first, const float* __restrict__ head_t,
     const float* __restrict__ delay_t, const float* __restrict__ s_first,
     const float* __restrict__ s_left, const float* __restrict__ s_right,
-    float* __restrict__ out, int64_t total) {
-  const int64_t idx =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int64_t l = idx / kLong;
-  const int i = static_cast<int>(idx - l * kLong);
+    float* __restrict__ out) {
+  const int64_t l = blockIdx.x;
+  const int i = 4 * threadIdx.x;
+  // The lane's scalars and its predecessor's (lane 0 reads its own twice
+  // and uses none of them): seven independent loads, the same for every
+  // thread of the block. window_sequence is a 2-bit field of the bitstream.
+  const int64_t q = l > 0 ? l - 1 : 0;
+  const int seq = __ldg(seqs + l) & 3;
+  const int shape = __ldg(shapes + l) != 0;
+  const int prev = __ldg(prev_shapes + l) != 0;
+  const bool linked = __ldg(first + l) == 0 && l > 0;
+  const int qseq = __ldg(seqs + q) & 3;
+  const int qshape = __ldg(shapes + q) != 0;
+  const int qprev = __ldg(prev_shapes + q) != 0;
 
-  // head(l, i): window_sequence is a 2-bit field of the bitstream.
-  const int seq = seqs[l] & 3;
-  const int shape = shapes[l] != 0;
-  const int prev = prev_shapes[l] != 0;
+  // head(l, i .. i + 3)
   const float* p = pcm + l * 2048;
-  float head;
+  float4 head;
   if (seq == kEightShort) {
-    head = i < kP0 ? 0.f
-                   : short_sum(p, i - kP0, s_first + prev * 128,
-                               s_left + shape * 128, s_right + shape * 128);
+    head = i < kP0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                   : short_sum4(p, i - kP0, s_first + prev * 128,
+                                s_left + shape * 128, s_right + shape * 128);
   } else {
-    head = __fmul_rn(p[i], head_t[(seq * 2 + prev) * kLong + i]);
+    head = mul4(load4(p + i), load4(head_t + (seq * 2 + prev) * kLong + i));
   }
 
-  // delay(l - 1, i): lane l-1's tail, zero where a sequence starts.
-  float delay = 0.f;
-  if (l > 0 && first[l] == 0) {
-    const int64_t q = l - 1;
-    const int qseq = seqs[q] & 3;
-    const int qshape = shapes[q] != 0;
+  // delay(l - 1, i .. i + 3): lane l-1's tail, zero where a sequence starts.
+  float4 delay = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (linked) {
     const float* pq = pcm + q * 2048;
     if (qseq == kEightShort) {
-      if (i < kP1) {
-        const int qprev = prev_shapes[q] != 0;
-        delay = short_sum(pq, kP1 + i, s_first + qprev * 128,
-                          s_left + qshape * 128, s_right + qshape * 128);
-      }
+      if (i < kP1)
+        delay = short_sum4(pq, kP1 + i, s_first + qprev * 128,
+                           s_left + qshape * 128, s_right + qshape * 128);
     } else {
-      delay = __fmul_rn(pq[kLong + i],
-                        delay_t[(qseq * 2 + qshape) * kLong + i]);
+      delay = mul4(load4(pq + kLong + i),
+                   load4(delay_t + (qseq * 2 + qshape) * kLong + i));
     }
   }
-  out[idx] = __fadd_rn(head, delay);
+  *reinterpret_cast<float4*>(out + l * kLong + i) = add4(head, delay);
 }
 
 int launch_error() { return static_cast<int>(cudaGetLastError()); }
@@ -330,22 +364,29 @@ extern "C" int aac_dequant_launch(const void* coeffs, const void* qbuf,
   return launch_error();
 }
 
+// pcm [L, 2048] -> out [L, 1024]; pcm, out and the five tables 16-byte
+// aligned.
 extern "C" int aac_ola_launch(const void* pcm, const void* seqs,
                               const void* shapes, const void* prev_shapes,
                               const void* first, const void* head_t,
                               const void* delay_t, const void* s_first,
                               const void* s_left, const void* s_right,
                               void* out, int L, void* stream) {
-  const int64_t total = static_cast<int64_t>(L) * kLong;
-  if (total <= 0) return launch_error();
-  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  aac_ola_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (L <= 0) return launch_error();
+  aac_ola_kernel<<<static_cast<unsigned>(L), kOlaThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pcm), static_cast<const int32_t*>(seqs),
       static_cast<const int32_t*>(shapes),
       static_cast<const int32_t*>(prev_shapes),
       static_cast<const uint8_t*>(first), static_cast<const float*>(head_t),
       static_cast<const float*>(delay_t), static_cast<const float*>(s_first),
       static_cast<const float*>(s_left), static_cast<const float*>(s_right),
-      static_cast<float*>(out), total);
+      static_cast<float*>(out));
   return launch_error();
+}
+
+// A3's registers, local bytes and blocks per SM (simt_gemm::attributes):
+// out[3].
+extern "C" int aac_ola_attributes(int* out) {
+  return simt_gemm::attributes(aac_ola_kernel, 0, out);
 }

@@ -14,16 +14,48 @@
 //      (zero where boundary[g]; the carried tail0 at g = 0);
 //   4. frequency inversion: times finv[k][j] (+-1, the reference's table);
 //   5. write S[g, c, t*32 + k], the polyphase product's operand layout.
-// The tail of granule G-1 goes to tail_out. Blocks run in no order, so a
-// block does not wait for g-1's block: it recomputes g-1's IMDCT tail from
-// x[g-1] (antialiased with g-1's own block type). That doubles a cheap
-// step (18 MACs per output) instead of adding a pass and a scratch array.
-// What bounds M1: memory traffic (read 2 x 576 and write 576 floats per
-// granule-channel, 36-54 MACs per output); the hybrid matrices (10 KB)
-// are staged once per block in shared memory and the block walks over
-// several granule-channels. Granule-major, channel-minor layout with one
-// granule-channel per block iteration keeps every load and store
-// coalesced (the reference's granule-minor layout was for TPU lanes).
+// The tail of granule G-1 goes to tail_out.
+// What bounded the first M1 was shared memory's load rate, not device
+// memory (9.4 KB moved for 31K multiply-adds a granule-channel). It
+// made one output a thread and fed each of its 36-54 fmaf by two 4-byte
+// shared-memory loads (the matrix entry, broadcast, and x at stride 19):
+// two lane-loads a multiply-add, and an SM serves 32 lanes a clock, so the
+// loads alone took four times the bytes bound; it also read and
+// antialiased x[g-1] again for every granule and passed three block
+// barriers a granule-channel.
+// This kernel blocks the product in registers along the subband. A warp
+// takes one channel and a run of `run` consecutive granules; lane k is
+// subband k and holds the subband's 18 antialiased inputs in registers.
+//   - x[g, c] (2304 contiguous bytes) comes by 16-byte cp.async into the
+//     warp's own shared buffer and is read back as nine 8-byte loads a
+//     lane (lane k's floats 18k .. 18k + 17; 16 lanes' pairs fall in 32
+//     distinct banks). Once the warp has read it, the copy of the next
+//     granule starts into the same buffer and lands during the product.
+//   - The butterflies run in registers: lane k gets lane k+1's sample i
+//     and lane k-1's sample 17 - i by shuffle (i < 8), each product and sum
+//     rounded once (__fmul_rn, __fadd_rn, __fsub_rn), as the plain twin's.
+//   - The four matrices lie in shared memory as they lie in device memory
+//     ([4][36][18]); two rows are 36 floats, nine 16-byte words, so a lane
+//     reads a row pair as nine broadcast 16-byte loads and three pairs are
+//     in flight: 27 loads feed 108 fmaf on six independent chains. Each row
+//     is one chain of fmaf in increasing j from +0, the first kernel's sum.
+//     The matrix is chosen by a per-lane base pointer: only a mixed short
+//     block has two in one warp. A block type outside 0..3 takes a fifth
+//     matrix of zeros, as the reference's one-hot selection multiplies by
+//     zero.
+//   - Rows 0-17 meet the carried tail and finv and are stored at once (32
+//     lanes write 128 contiguous bytes a row); rows 18-35 replace the tail
+//     in registers for the next granule of the run. x[g-1] is read and
+//     transformed again (rows 18-35 only) at the start of a run, unless
+//     boundary[g] or g = 0, so runs do not depend on each other; the
+//     recomputed tail is the same chain of fmaf, so S does not depend on
+//     `run` by any bit. `run` trades that reuse against parallelism (C *
+//     ceil(G / run) warps); the wrapper's run_length chooses it.
+// What holds this kernel is the throughput of its instruction mix (about
+// 1100 a granule-channel: 648 fmaf, 166 16-byte shared loads): on an
+// NVIDIA H100 its time did not move with 8 or 16 warps a multiprocessor,
+// with three or nine row pairs in flight, or with the product rolled into
+// a loop, and halving the matrix loads took a ninth off.
 //
 // M2 mp3_synth (steps 5-6) and L1 mpa_l12_synth (which replaces
 // symphonia_tpu/ops/mp3_dense.py:273 l12_dense_batch_jax, K11) are one
@@ -96,51 +128,91 @@
 namespace {
 
 constexpr int kBlockShort = 2;
-constexpr int kThreads = 576;  // M1: one thread per (line t, subband k)
-constexpr int kXStride = 19;   // padded subband stride in shared memory
-
-// Antialias butterflies in place on a [32][kXStride] shared buffer.
-__device__ __forceinline__ void antialias(float* xs, int nb, const float* cs,
-                                          const float* ca) {
-  const int tid = threadIdx.x;
-  if (tid < 31 * 8) {
-    const int b = tid >> 3;  // boundary between subbands b and b+1
-    const int i = tid & 7;
-    if (b < nb) {
-      float* plo = xs + b * kXStride + 17 - i;
-      float* phi = xs + (b + 1) * kXStride + i;
-      const float lo = *plo, hi = *phi;
-      *plo = lo * cs[i] - hi * ca[i];
-      *phi = hi * cs[i] + lo * ca[i];
-    }
-  }
-}
+constexpr int kHybThreads = 256;  // eight warps, a run of granules each
+static_assert(kHybThreads == simt_gemm::kThreads, "attributes' block");
+constexpr int kHybWarps = kHybThreads / 32;
+constexpr int kMat4 = 36 * 18 / 4;  // 16-byte words of one matrix
+constexpr int kPair4 = 9;           // ... of two rows
+constexpr int kInFlight = 3;        // row pairs in flight
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ int n_bounds(int bt, bool mixed) {
   return bt == kBlockShort ? (mixed ? 1 : 0) : 31;
 }
 
-// Matrix index for subband k (hybrid_matrices() order), -1 for a block
-// type outside 0..3 (the reference's one-hot selection then gives zero).
+// Matrix index for subband k (hybrid_matrices() order); 4, a matrix of
+// zeros, for a block type outside 0..3 (the reference's one-hot selection
+// then multiplies by zero).
 __device__ __forceinline__ int matrix_index(int bt, bool mixed, int k) {
-  if (static_cast<unsigned>(bt) > 3u) return -1;
+  if (static_cast<unsigned>(bt) > 3u) return 4;
   if (bt != kBlockShort) return bt;
   return (mixed && k < 2) ? 0 : kBlockShort;
 }
 
-// sum_j T[m][row][j] * xs[k][j]
-__device__ __forceinline__ float imdct_row(const float* T, int m, int row,
-                                           const float* xs, int k) {
-  if (m < 0) return 0.f;
-  const float* tr = T + (m * 36 + row) * 18;
-  const float* xr = xs + k * kXStride;
-  float acc = 0.f;
+// Start the copy of one granule-channel (144 16-byte words) into the
+// warp's buffer.
+__device__ __forceinline__ void stage_granule(float* buf, const float* xg,
+                                              int lane) {
 #pragma unroll
-  for (int j = 0; j < 18; ++j) acc = fmaf(tr[j], xr[j], acc);
-  return acc;
+  for (int i = 0; i < 5; ++i) {
+    const int w = i * 32 + lane;
+    if (w < 144) simt_gemm::cp_async16(buf + 4 * w, xg + 4 * w, true);
+  }
+  simt_gemm::cp_async_commit();
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Antialias butterflies across lanes: lane b's sample 17 - i with lane
+// b + 1's sample i, for the boundaries b < nb (nb is the warp's).
+__device__ __forceinline__ void antialias(float (&x)[18], int nb, int lane,
+                                          const float* cs, const float* ca) {
+  if (nb == 0) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float lo = x[17 - i], hi = x[i];
+    const float hi_above = __shfl_down_sync(kFullMask, hi, 1);
+    const float lo_below = __shfl_up_sync(kFullMask, lo, 1);
+    const float c = cs[i], a = ca[i];
+    if (lane < nb)
+      x[17 - i] = __fsub_rn(__fmul_rn(lo, c), __fmul_rn(hi_above, a));
+    if (lane >= 1 && lane <= nb)
+      x[i] = __fadd_rn(__fmul_rn(hi, c), __fmul_rn(lo_below, a));
+  }
+}
+
+__device__ __forceinline__ float component(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Rows 2 * pair0 .. 2 * pair0 + 5 of the lane's matrix (`m4`, shared
+// memory, 16-byte words) times x: out[r] = sum_j T[row r][j] * x[j], one
+// chain of fmaf in increasing j from +0 a row, three row pairs in flight.
+__device__ __forceinline__ void imdct_rows(const float4* m4, int pair0,
+                                           const float (&x)[18],
+                                           float (&out)[2 * kInFlight]) {
+#pragma unroll
+  for (int r = 0; r < 2 * kInFlight; ++r) out[r] = 0.f;
+  const float4* p = m4 + pair0 * kPair4;
+#pragma unroll
+  for (int q = 0; q < kPair4; ++q) {
+    float4 v[kInFlight];
+#pragma unroll
+    for (int s = 0; s < kInFlight; ++s) v[s] = p[s * kPair4 + q];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = 4 * q + i;        // element of the 36-float row pair
+      const int r = e >= 18 ? 1 : 0;  // its row of the pair, and column
+      const int j = e - 18 * r;
+#pragma unroll
+      for (int s = 0; s < kInFlight; ++s)
+        out[2 * s + r] = fmaf(component(v[s], i), x[j], out[2 * s + r]);
+    }
+  }
+}
+
+// Two blocks an SM: within 128 registers ptxas keeps the 18 inputs, the
+// 18-row tail, the 18 signs, six sums and the row pairs in flight with no
+// spill (held to three blocks it spills).
+__global__ void __launch_bounds__(kHybThreads, 2)
 mp3_hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ bt,
                   const uint8_t* __restrict__ mixed,
                   const uint8_t* __restrict__ boundary,
@@ -148,56 +220,100 @@ mp3_hybrid_kernel(const float* __restrict__ x, const int32_t* __restrict__ bt,
                   const float* __restrict__ T, const float* __restrict__ cs_g,
                   const float* __restrict__ ca_g,
                   const float* __restrict__ finv, float* __restrict__ S,
-                  float* __restrict__ tail_out, int G, int C) {
-  __shared__ float Ts[4 * 36 * 18];
-  __shared__ float xcur[32 * kXStride];
-  __shared__ float xprev[32 * kXStride];
+                  float* __restrict__ tail_out, int G, int C, int run) {
+  __shared__ __align__(16) float Ts[5 * 36 * 18];  // the fifth: zeros
+  __shared__ __align__(16) float xs[kHybWarps][576];
   __shared__ float cs[8], ca[8];
   const int tid = threadIdx.x;
-  for (int i = tid; i < 4 * 36 * 18; i += kThreads) Ts[i] = T[i];
+  for (int i = tid; i < 5 * 36 * 18; i += kHybThreads)
+    Ts[i] = i < 4 * 36 * 18 ? T[i] : 0.f;
   if (tid < 8) {
     cs[tid] = cs_g[tid];
     ca[tid] = ca_g[tid];
   }
-  const int k = tid & 31;  // subband
-  const int t = tid >> 5;  // line 0..17
-  const float sign = finv[k * 18 + t];
-  const int64_t pairs = static_cast<int64_t>(G) * C;
-  for (int64_t p = blockIdx.x; p < pairs; p += gridDim.x) {
-    const int g = static_cast<int>(p / C);
-    const int c = static_cast<int>(p - static_cast<int64_t>(g) * C);
-    const bool cut = boundary != nullptr && boundary[g] != 0;
-    const bool has_prev = g > 0 && !cut;
-    __syncthreads();  // Ts ready / previous iteration done with x buffers
-    const int bt_c = bt[p];
-    const bool mx_c = mixed[p] != 0;
-    const float* xg = x + p * 576;
-    xcur[(tid / 18) * kXStride + tid % 18] = xg[tid];
-    int bt_p = 0;
-    bool mx_p = false;
-    if (has_prev) {
-      const int64_t q = p - C;
-      bt_p = bt[q];
-      mx_p = mixed[q] != 0;
-      xprev[(tid / 18) * kXStride + tid % 18] = x[q * 576 + tid];
+  __syncthreads();
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * kHybWarps + warp;
+  const int runs = (G + run - 1) / run;
+  if (item >= static_cast<int64_t>(runs) * C) return;
+  const int c = static_cast<int>(item % C);
+  const int g0 = static_cast<int>(item / C) * run;
+  const int n = min(run, G - g0);  // granules of this run
+  float* buf = xs[warp];
+  float sign[18];
+#pragma unroll
+  for (int t = 0; t < 18; ++t) sign[t] = finv[lane * 18 + t];
+
+  // The tail that meets granule g0: the carried one at g0 = 0; else
+  // granule g0 - 1's, recomputed as step -1 of the loop below unless
+  // boundary[g0] cuts it off.
+  float tail[18];
+#pragma unroll
+  for (int t = 0; t < 18; ++t) tail[t] = 0.f;
+  bool cut_n = boundary != nullptr && boundary[g0] != 0;
+  if (g0 == 0 && !cut_n && tail0 != nullptr) {
+#pragma unroll
+    for (int t = 0; t < 18; ++t) tail[t] = tail0[(c * 32 + lane) * 18 + t];
+  }
+  const int first = (g0 > 0 && !cut_n) ? -1 : 0;
+
+  // Granule g0 + first's copy and block type go ahead of the loop; inside,
+  // step it + 1's are started before step it's product.
+  int64_t p_n = static_cast<int64_t>(g0 + first) * C + c;
+  stage_granule(buf, x + p_n * 576, lane);
+  int bt_n = bt[p_n];
+  bool mx_n = mixed[p_n] != 0;
+#pragma unroll 1
+  for (int it = first; it < n; ++it) {
+    const int64_t p = p_n;
+    const int bt_c = bt_n;
+    const bool mx_c = mx_n, cut = cut_n;
+    simt_gemm::cp_async_wait<0>();
+    __syncwarp();  // every lane's copies have landed
+    float xr[18];
+    const float2* b2 = reinterpret_cast<const float2*>(buf + 18 * lane);
+#pragma unroll
+    for (int m = 0; m < 9; ++m) {
+      const float2 v = b2[m];
+      xr[2 * m] = v.x;
+      xr[2 * m + 1] = v.y;
     }
-    __syncthreads();
-    antialias(xcur, n_bounds(bt_c, mx_c), cs, ca);
-    if (has_prev) antialias(xprev, n_bounds(bt_p, mx_p), cs, ca);
-    __syncthreads();
-    const int m_c = matrix_index(bt_c, mx_c, k);
-    const float head = imdct_row(Ts, m_c, t, xcur, k);
-    float prev;
-    if (has_prev) {
-      prev = imdct_row(Ts, matrix_index(bt_p, mx_p, k), 18 + t, xprev, k);
-    } else if (g == 0 && !cut && tail0 != nullptr) {
-      prev = tail0[(c * 32 + k) * 18 + t];
-    } else {
-      prev = 0.f;
+    __syncwarp();  // every lane has read the buffer: refill it
+    if (it + 1 < n) {
+      p_n = static_cast<int64_t>(g0 + it + 1) * C + c;
+      stage_granule(buf, x + p_n * 576, lane);
+      bt_n = bt[p_n];
+      mx_n = mixed[p_n] != 0;
+      cut_n = boundary != nullptr && boundary[g0 + it + 1] != 0;
     }
-    S[p * 576 + t * 32 + k] = (head + prev) * sign;
-    if (g == G - 1)
-      tail_out[(c * 32 + k) * 18 + t] = imdct_row(Ts, m_c, 18 + t, xcur, k);
+    antialias(xr, n_bounds(bt_c, mx_c), lane, cs, ca);
+    const float4* m4 = reinterpret_cast<const float4*>(Ts) +
+                       matrix_index(bt_c, mx_c, lane) * kMat4;
+    float acc[2 * kInFlight];
+    if (it >= 0) {
+      float* Sg = S + p * 576 + lane;
+#pragma unroll
+      for (int pair = 0; pair < 9; pair += kInFlight) {
+        imdct_rows(m4, pair, xr, acc);
+#pragma unroll
+        for (int r = 0; r < 2 * kInFlight; ++r) {
+          const int t = 2 * pair + r;
+          Sg[t * 32] = (acc[r] + (cut ? 0.f : tail[t])) * sign[t];
+        }
+      }
+    }
+#pragma unroll
+    for (int pair = 9; pair < 18; pair += kInFlight) {
+      imdct_rows(m4, pair, xr, acc);
+#pragma unroll
+      for (int r = 0; r < 2 * kInFlight; ++r)
+        tail[2 * pair + r - 18] = acc[r];
+    }
+  }
+  if (g0 + n == G) {
+#pragma unroll
+    for (int t = 0; t < 18; ++t) tail_out[(c * 32 + lane) * 18 + t] = tail[t];
   }
 }
 
@@ -490,25 +606,35 @@ int launch_synth(const void* S, const void* N, const void* W,
 
 }  // namespace
 
+// x [G, C, 576] (16-byte aligned) -> S [G, C, 576], tail_out [C, 32, 18];
+// boundary and tail0 may be null; `run` >= 1 granules a warp.
 extern "C" int mp3_hybrid_launch(const void* x, const void* bt,
                                  const void* mixed, const void* boundary,
                                  const void* tail0, const void* T,
                                  const void* cs, const void* ca,
                                  const void* finv, void* S, void* tail_out,
-                                 int G, int C, void* stream) {
-  const int64_t pairs = static_cast<int64_t>(G) * C;
-  if (pairs <= 0) return static_cast<int>(cudaGetLastError());
+                                 int G, int C, int run, void* stream) {
+  if (G <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  if (run < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t warps = static_cast<int64_t>((G + run - 1) / run) * C;
   const unsigned grid =
-      static_cast<unsigned>(pairs < 132 * 8 ? pairs : 132 * 8);
-  mp3_hybrid_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned>((warps + kHybWarps - 1) / kHybWarps);
+  mp3_hybrid_kernel<<<grid, kHybThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int32_t*>(bt),
       static_cast<const uint8_t*>(mixed),
       static_cast<const uint8_t*>(boundary),
       static_cast<const float*>(tail0), static_cast<const float*>(T),
       static_cast<const float*>(cs), static_cast<const float*>(ca),
       static_cast<const float*>(finv), static_cast<float*>(S),
-      static_cast<float*>(tail_out), G, C);
+      static_cast<float*>(tail_out), G, C, run);
   return static_cast<int>(cudaGetLastError());
+}
+
+// M1's registers, local bytes and blocks per SM (simt_gemm::attributes):
+// out[3].
+extern "C" int mp3_hybrid_attributes(int* out) {
+  return simt_gemm::attributes(mp3_hybrid_kernel, 0, out);
 }
 
 // S [G, C, 576] (index t*32 + k) -> pcm [G, C, 576], tail_out [C, 480];

@@ -3,14 +3,17 @@ a plain PyTorch twin beside it.
 
 * ``flac_dense`` — FLAC predictor reconstruction + wasted bits (kernel F1)
   and stereo decorrelation (kernel F2).
-* ``mp3_dense`` — MP3 Layer III hybrid synthesis (kernel M1), and the fp32
+* ``mp3_dense`` — MP3 Layer III hybrid synthesis (kernel M1: a warp takes
+  a run of granules, a lane one subband, the 36 x 18 product blocked in
+  registers and the overlap tail carried in them), and the fp32
   polyphase synthesis in factored form (matrixing, then the 16-tap
   windowed FIR) fused with the synthesis overlap-add (kernel M2), for
   Layer I/II frames too (kernel L1, M2's body).
 * ``aac_dense`` — AAC-LC IMDCTs in fp32 with the handoff dequantization as
   their prologue (kernel A1: half of the product on a pipelined SIMT tile,
   the other half mirrored in its epilogue), that dequantization alone
-  (A2), and the window/overlap-add over many sequences in one launch (A3).
+  (A2), and the window/overlap-add over many sequences in one launch (A3:
+  a block a lane, four samples a thread as 16-byte words).
 * ``vorbis_dense`` — Vorbis IMDCTs in fp32, one per block size (kernel V1,
   A1's tile and mirrored epilogue), and the equal-size lap of the combined
   decode step (kernel V2).

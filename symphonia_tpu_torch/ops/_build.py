@@ -60,8 +60,8 @@ _SIGNATURES = {
     # x, assign, out, F, n, stream
     "flac_decorrelate_launch": [_P, _P, _P, _I64, _I, _P],
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
-    # stream
-    "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _P],
+    # run, stream
+    "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _I, _P],
     # S, N, W, tail0, boundary, pcm, tail_out, G, C, stream
     "mp3_synth_launch": [_P] * 7 + [_I, _I, _P],
     # X, M, qbuf (None: no dequant prologue), scales, deq, sfb_map, pow43,

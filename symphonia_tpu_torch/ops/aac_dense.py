@@ -19,7 +19,9 @@ Three kernels (``csrc/aac_dense.cu``):
   :func:`dequant_select`;
 * ``aac_ola`` (A3): the window/overlap-add (K8) over lanes of many
   (file, channel) sequences in one launch, with a ``first [L]`` mask that
-  is true where a sequence starts (its previous delay is zero).
+  is true where a sequence starts (its previous delay is zero). A block
+  takes one lane, a thread four consecutive samples: 16-byte loads of pcm
+  and of the window rows, one 16-byte store, each pcm element read once.
 
 Each wrapper runs its plain PyTorch twin for CPU tensors and launches its
 kernel for CUDA tensors, or raises. The constant tables come from the
@@ -294,7 +296,8 @@ def aac_dequant(coeffs, qbuf, scales, deq, sfb_map, pow43):
 def aac_ola(pcm, seqs, shapes, prev_shapes, first, head_t, delay_t,
             s_first, s_left, s_right):
     """A3 wrapper: ``pcm [L, 2048] -> [L, 1024]``; ``first [L]`` is true
-    where a sequence starts."""
+    where a sequence starts. On the card ``pcm`` and the tables must be
+    16-byte aligned (the kernel moves four samples at a time)."""
     L = pcm.shape[0]
     if L == 0:
         raise ValueError("empty lane batch")
@@ -314,6 +317,8 @@ def aac_ola(pcm, seqs, shapes, prev_shapes, first, head_t, delay_t,
         raise ValueError("pcm [L, 2048], seqs/shapes/prev_shapes/first [L], "
                          "head/delay [4, 2, 1024], short windows [2, 128]")
     dev = _build.require_cuda(pcm, *lanes, first, *tables)
+    if any(t.data_ptr() % 16 for t in (pcm, *tables)):
+        raise ValueError("pcm and the window tables must be 16-byte aligned")
     out = torch.empty((L, 1024), dtype=torch.float32, device=dev)
     err = _build.lib().aac_ola_launch(
         pcm.data_ptr(), *(t.data_ptr() for t in lanes), first.data_ptr(),

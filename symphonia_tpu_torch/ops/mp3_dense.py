@@ -12,7 +12,10 @@ Two kernels:
 
 * ``mp3_hybrid`` (M1): antialias, hybrid IMDCT per block type, hybrid
   overlap-add, frequency inversion, written as the polyphase operand
-  ``S [G, C, 576]`` (vec index t*32 + k);
+  ``S [G, C, 576]`` (vec index t*32 + k). A warp takes a run of consecutive
+  granules of one channel (:func:`run_length`), a lane one subband with its
+  18 inputs in registers; the matrix rows come from shared memory once for
+  all 32 subbands, and the hybrid tail stays in registers inside a run;
 * ``mp3_synth`` (M2): the polyphase synthesis in true fp32, in factored
   form: the ``[64, 32]`` matrixing of each 32-sample slot, then the 16-tap
   windowed FIR across slots, with the 480-sample synthesis overlap-add
@@ -460,8 +463,32 @@ def _opt_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
-    """M1 wrapper: (S [G, C, 576], hybrid_tail [C, 32, 18])."""
+# M1's warps take runs of consecutive granules of one channel, the hybrid
+# tail carried in registers inside a run and recomputed from x[g - 1] at
+# its start. Long runs save that recomputation (half a granule's product a
+# run); short ones give more warps, and a warp takes its granules one after
+# another. RUN_WARPS is the least number of warps a longer run must leave:
+# 128 blocks of eight, about one a multiprocessor of an H100 (measured
+# there at 64, 1024 and 4096 stereo granules: chip_smoke.py's
+# ``graph_ms_by_run``).
+RUN_LENGTHS = (8, 4, 2, 1)
+RUN_WARPS = 128 * 8
+
+
+def run_length(G: int, C: int) -> int:
+    """Granules a warp of M1 takes in a row: the longest of
+    :data:`RUN_LENGTHS` that still leaves :data:`RUN_WARPS` warps, else 1."""
+    for run in RUN_LENGTHS:
+        if C * -(-G // run) >= RUN_WARPS:
+            return run
+    return 1
+
+
+def mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv,
+               run: Optional[int] = None):
+    """M1 wrapper: (S [G, C, 576], hybrid_tail [C, 32, 18]). ``run`` is the
+    number of consecutive granules a warp takes (:func:`run_length` by
+    default); the result does not depend on it."""
     G, C, _ = x.shape
     if G == 0:
         raise ValueError("empty granule batch")
@@ -487,13 +514,18 @@ def mp3_hybrid(x, bt, mixed, boundary, hybrid_tail0, T, cs, ca, finv):
         raise ValueError("x [G, C, 576], bt/mixed [G, C], boundary [G], "
                          "tail [C, 32, 18], f32 T [4, 36, 18], cs/ca [8], "
                          "finv [32, 18]")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    run = run_length(G, C) if run is None else int(run)
+    if run < 1:
+        raise ValueError("run must be at least 1")
     S = torch.empty((G, C, 576), dtype=torch.float32, device=dev)
     tail = torch.empty((C, 32, 18), dtype=torch.float32, device=dev)
     lib = _build.lib()
     err = lib.mp3_hybrid_launch(
         x.data_ptr(), bt.data_ptr(), mixed.data_ptr(), _opt_ptr(boundary),
         _opt_ptr(hybrid_tail0), T.data_ptr(), cs.data_ptr(), ca.data_ptr(),
-        finv.data_ptr(), S.data_ptr(), tail.data_ptr(), G, C,
+        finv.data_ptr(), S.data_ptr(), tail.data_ptr(), G, C, run,
         _build.stream_ptr(dev))
     _build.LAUNCHES["mp3_hybrid"] += 1
     _build.check("mp3_hybrid", err)

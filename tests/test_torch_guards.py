@@ -162,6 +162,7 @@ def test_port_sources_import_no_jax():
     lambda: port.decode_many([]),
     lambda: _bench_rice_device().main(),
     lambda: _batch_serving().main(["any.wav"]),
+    lambda: _time_kernel_variants().measure("any"),
 ])
 def test_cuda_without_cuda_raises(make):
     if torch.cuda.is_available():
@@ -189,6 +190,12 @@ def _bench_rice_device():
     from symphonia_tpu_torch.tools import bench_rice_device
 
     return bench_rice_device
+
+
+def _time_kernel_variants():
+    from symphonia_tpu_torch.tools import time_kernel_variants
+
+    return time_kernel_variants
 
 
 def _batch_serving():
@@ -302,6 +309,31 @@ def test_every_kernel_has_a_c_entry_point(kernel):
     assert f"{kernel}_launch" in _build._SIGNATURES
     assert any(f"{kernel}_launch(" in s.read_text()
                for s in _build._sources() if s.suffix == ".cu")
+
+
+# The C exports that report a kernel's registers, local bytes and blocks
+# per SM (chip_smoke.py fails a run on a spill), and the source of each.
+_ATTRIBUTE_EXPORTS = {
+    "flac_lpc_attributes": "flac_dense.cu",
+    "mp3_hybrid_attributes": "mp3_dense.cu",
+    "mp3_synth_attributes": "mp3_dense.cu",
+    "aac_imdct_attributes": "aac_dense.cu",
+    "aac_ola_attributes": "aac_dense.cu",
+    "vorbis_imdct_attributes": "vorbis_dense.cu",
+    "pcm_unpack_attributes": "pcm.cu",
+}
+
+
+@pytest.mark.parametrize("export", sorted(_ATTRIBUTE_EXPORTS))
+def test_attribute_exports_have_c_entry_points(export):
+    # Each is an extern "C" function of its kernel's source, on
+    # simt_gemm::attributes or the CUDA runtime's queries, and
+    # chip_smoke.py reads it.
+    src = (_build.CSRC / _ATTRIBUTE_EXPORTS[export]).read_text()
+    assert f'extern "C" int {export}(' in src
+    smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert f".{export}" in smoke
+    assert len(_build.KERNELS) == 13
 
 
 def test_launch_errors_raise():
