@@ -72,9 +72,16 @@ Phases (one line each; any failure raises and exits non-zero):
      sources;
   5. ``rice_bench``, R1's path: ``symphonia_tpu_torch.tools.
      bench_rice_device.main()`` at its defaults (8192 lanes of 4096
-     symbols, k = 4), then R1 at that shape bit for bit against its twin on
-     the card (residuals and end cursors), the encoded values and the
-     reference's scalar oracle on a few lanes;
+     symbols, k = 4), then R1 (a register bit reader a lane, stores staged
+     a warp's tile at a time) bit for bit against its twin on the card
+     (residuals and end cursors), the encoded values and the reference's
+     scalar oracle on a few lanes, at that shape and at FLAC partitions
+     ([131072, 256], k 0..14 by lane), each with its device, back-to-back
+     and enqueue times and its bound; the reader's edge cases (cursors
+     anywhere in a word, into the last word, past 32 W, near 2^32, runs of
+     zeros, k = 0, 1, 30, 31 and outside 0..31, n = 0, 1, 33, 95, B = 1,
+     31, 33) with the words at storage offsets 0-3; its registers, spills
+     and blocks per SM;
   6. the entry step: ``symphonia_tpu_torch.entry.decode_step`` (the
      reference's combined four-codec step, K14) on the card at full width
      (8192 FLAC frames of 4096 samples, 4096 stereo MP3 granules, 16384 AAC
@@ -155,6 +162,9 @@ LOSSY_PACKET = ("ima_adpcm", "ms_adpcm")
 # P1's full width ([B, N] bytes) and R1's (the bench tool's defaults).
 PCM_SIZE = (16384, 16384)
 RICE_SIZE = dict(B=8192, n=4096, k=4)
+# R1's second shape, as many Rice partitions as phase 6's 8192 FLAC frames
+# of 4096 samples give at partition order 4 (k 0..14 by lane).
+RICE_MIXED_SIZE = dict(B=131072, n=256)
 
 # Kernel -> (route, source, the TPU program it replaces)
 KERNEL_INFO = {
@@ -1885,14 +1895,43 @@ def phase_pcm_batch(inputs) -> dict:
     return info
 
 
+def _rice_case(rd, words, cur, param, n: int) -> dict:
+    """R1 at one shape: bit for bit against its twin on the card (residuals
+    and end cursors), then its back-to-back, device (graph) and enqueue
+    times, the twin's time and the bound from these inputs."""
+    import torch
+
+    got, got_end = rd.rice_decode_lanes(words, cur, param, n)
+    want, want_end = rd.rice_decode_lanes_plain(words, cur, param, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got_end, want_end)):
+        raise AssertionError(f"rice_decode differs from its twin at "
+                             f"[{cur.shape[0]}, {n}]")
+    del want, want_end
+
+    def kernel():
+        rd.rice_decode_lanes(words, cur, param, n)
+
+    return dict(got=got, ms=cuda_ms(kernel, 10), graph_ms=graph_ms(kernel, 10),
+                enqueue_ms=enqueue_ms(kernel, 20),
+                plain_ms=cuda_ms(lambda: rd.rice_decode_lanes_plain(
+                    words, cur, param, n), 1),
+                **bound(*work_rice_decode(words.numel(), cur.shape[0], n)))
+
+
 def phase_rice_bench() -> dict:
-    """R1's path: the port's bench tool at its defaults, then R1 at that
-    shape against its twin on the card, the encoded values and the
-    reference's scalar oracle on four lanes."""
+    """R1's path: the port's bench tool at its defaults (the launches of the
+    path), then R1 against its twin on the card, the encoded values and the
+    reference's scalar oracle on four lanes at two shapes of 33.5M symbols:
+    the tool's [8192, 4096] with k = 4 (few long lanes) and FLAC
+    partitions, [131072, 256] with k 0..14 by lane (many short lanes); then
+    the edge cases of ``testing.rice_streams`` with the words at every
+    16-byte misalignment (a view at storage offset 0-3)."""
     import torch
 
     from symphonia_tpu_torch.ops import _build
     from symphonia_tpu_torch.ops import rice_device as rd
+    from symphonia_tpu_torch.testing import rice_streams as rs
     from symphonia_tpu_torch.tools import bench_rice_device
 
     _build.reset_launches()
@@ -1901,35 +1940,62 @@ def phase_rice_bench() -> dict:
     launches = dict(_build.LAUNCHES)
     if not res["correct_slice"]:
         raise AssertionError("bench_rice_device: correctness slice failed")
-    B, n, k = RICE_SIZE["B"], RICE_SIZE["n"], RICE_SIZE["k"]
     dev = torch.device("cuda")
-    data, cur, vals = rd.make_test_streams(B, n, k)
-    words = torch.from_numpy(rd.pack_bits_u32(data)).to(dev)
-    cur0 = torch.from_numpy(np.asarray(cur, np.int32)).to(dev)
-    par = torch.from_numpy(np.full(B, k, np.int32)).to(dev)
-    got, got_end = rd.rice_decode_lanes(words, cur0, par, n)
-    want, want_end = rd.rice_decode_lanes_plain(words, cur0, par, n)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got_end, want_end)):
-        raise AssertionError("rice_decode differs from its twin")
-    got_np = got.cpu().numpy()
-    if not np.array_equal(got_np, vals):
-        raise AssertionError("rice_decode differs from the encoded values")
-    lanes = np.array([0, 1, B // 2, B - 1])
-    oracle = rd.rice_decode_oracle(data, cur[lanes], np.full(4, k), n)
-    if not np.array_equal(got_np[lanes], oracle):
-        raise AssertionError("rice_decode differs from the scalar oracle")
+    B, n, k = RICE_SIZE["B"], RICE_SIZE["n"], RICE_SIZE["k"]
+    mixed = rs.make_mixed_streams(RICE_MIXED_SIZE["B"], RICE_MIXED_SIZE["n"],
+                                  SEED)
+    shapes = {"bench": rd.make_test_streams(B, n, k) + (np.full(B, k),),
+              "flac_partitions": (mixed[0], mixed[1], mixed[3], mixed[2])}
+    cases = {}
+    for name, (data, cur, vals, par) in shapes.items():
+        words = torch.from_numpy(rd.pack_bits_u32(data)).to(dev)
+        case = _rice_case(rd, words, torch.from_numpy(cur).to(dev),
+                          torch.from_numpy(par.astype(np.int32)).to(dev),
+                          vals.shape[1])
+        got_np = case.pop("got").cpu().numpy()
+        if not np.array_equal(got_np, vals):
+            raise AssertionError(f"rice_decode {name}: differs from the "
+                                 "encoded values")
+        lanes = np.array([0, 1, len(cur) // 2, len(cur) - 1])
+        oracle = rd.rice_decode_oracle(data, cur[lanes], par[lanes],
+                                       vals.shape[1])
+        if not np.array_equal(got_np[lanes], oracle):
+            raise AssertionError(f"rice_decode {name}: differs from the "
+                                 "scalar oracle")
+        cases[name] = dict(shape=list(vals.shape), stream_bytes=len(data),
+                           k=sorted({int(x) for x in par}), **case)
+        del got_np
+    edge = []
+    for c in rs.edge_cases(seed=SEED):
+        cur = torch.from_numpy(c["cur"]).to(dev)
+        par = torch.from_numpy(c["param"].astype(np.int32)).to(dev)
+        W = len(c["words"])
+        want = rd.rice_decode_lanes_plain(
+            torch.from_numpy(c["words"].view(np.int32)).to(dev), cur, par,
+            c["n"])
+        for delta in range(4):
+            buf = torch.zeros(W + 4, dtype=torch.int32, device=dev)
+            buf[delta:delta + W] = torch.from_numpy(c["words"].view(np.int32))
+            words = buf[delta:delta + W]
+            got = rd.rice_decode_lanes(words, cur, par, c["n"])
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"rice_decode edge case {c['name']}, "
+                                     f"words at offset {delta}: differs from "
+                                     "its twin")
+        edge.append(c["name"])
+    attrs = _attributes((("rice_decode", _build.lib().rice_decode_attributes,
+                          ()),))
     info = {"bench": {kk: (round(v, 4) if isinstance(v, float) else v)
                       for kk, v in res.items()},
-            "size": RICE_SIZE, "stream_bytes": len(data),
             "launches": launches, "card": card_line()}
     print("phase 5 rice_bench:", json.dumps(info), flush=True)
+    main_case = cases["bench"]
     info["kernel"] = dict(
-        max_abs_err=0, shape=[B, n],
-        ms=cuda_ms(lambda: rd.rice_decode_lanes(words, cur0, par, n), 10),
-        plain_ms=cuda_ms(lambda: rd.rice_decode_lanes_plain(
-            words, cur0, par, n), 1),
-        library_ms=None, **bound(*work_rice_decode(words.numel(), B, n)))
+        max_abs_err=0, library_ms=None, bits_equal_twin=True,
+        **{f: main_case[f] for f in ("shape", "ms", "plain_ms", "graph_ms",
+                                     "enqueue_ms", "bound_ms", "bound_by")},
+        by_shape=cases, edge_cases=edge, attributes=attrs)
     print("phase 5 rice_decode vs twin:", json.dumps(
         _rounded({"rice_decode": info["kernel"]})), flush=True)
     return info
@@ -2095,15 +2161,16 @@ def main() -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "shape": k["shape"],
                      # A1 and V1: cuBLAS on their half product; A1, V1, M2
-                     # and L1: the dense product's bound; M1, M2, L1 and
-                     # A3: the device time with the host's launch cost out;
-                     # F1, its helper, M1, M2 and A3: the host's time to
-                     # enqueue a call; M1 and A3: bit-equality with the
-                     # twin; F1, P1, M1 and A3: registers, spills and blocks
-                     # an SM.
+                     # and L1: the dense product's bound; M1, M2, L1, A3
+                     # and R1: the device time with the host's launch cost
+                     # out; F1, its helper, M1, M2, A3 and R1: the host's
+                     # time to enqueue a call; M1, A3 and R1: bit-equality
+                     # with the twin; F1, P1, M1, A3 and R1: registers,
+                     # spills and blocks an SM; R1: each shape's numbers.
                      **{f: k[f] for f in ("library_half_ms", "dense_bound_ms",
                                           "graph_ms", "enqueue_ms",
-                                          "bits_equal_twin", "attributes")
+                                          "bits_equal_twin", "attributes",
+                                          "by_shape")
                         if f in k}})
     print(env["card"])
     print(json.dumps({"kernels": rows}))

@@ -22,6 +22,19 @@ clamp to the last word (XLA's gather clamps).
 plain twin :func:`rice_decode_lanes_plain` for CPU tensors. The numpy
 stream builder and scalar oracle are the reference's (lines 33-37 and
 77-120), copied.
+
+What bounds R1 on the card is each lane's chain of symbols (every cursor
+waits on the one before), not bytes: a lane's time is its n symbols times
+the latency of one. So the kernel keeps memory off that chain and the
+chain short. A lane reads its bits from registers (four words, a bit
+offset and the two words after them, refilled from a 64-word ring in
+shared memory that 16-byte cp.async copies fill at every write-back), so
+a symbol is a funnel shift, a bit-find and an add, and the window moves
+on by selects, not branches. A warp stages 32 symbols of each of its 32
+lanes in shared memory and writes them back as whole 128-byte rows. Where
+the 64 bits at a cursor reach past the last word or the cursor could
+wrap, the lane finishes by the reference's clamped reads. ``words`` may be any
+contiguous 32-bit view (a slice at an odd offset included).
 """
 
 from __future__ import annotations

@@ -1,18 +1,21 @@
-"""Time M1 ``mp3_hybrid`` and A3 ``aac_ola`` built from other source trees.
+"""Time M1 ``mp3_hybrid``, A3 ``aac_ola`` and R1 ``rice_decode`` built from
+other source trees.
 
     python3 -m symphonia_tpu_torch.tools.time_kernel_variants DIR [DIR ...]
 
 Each DIR holds a full copy of ``symphonia_tpu_torch/csrc`` (edited or not).
 For each, a fresh process builds the library from DIR into ``DIR/_build``,
-checks both kernels against their plain twins, and prints one JSON line:
-the kernels' registers, spill bytes and blocks per SM, M1's device time
-(the replay of a CUDA graph of 50 calls) at [4096, 2, 576], [1024, 2, 576]
-and [64, 2, 576] for each run length, A3's back-to-back and device time at
-[16384, 2048], and the SM clock and power draw ``nvidia-smi`` reports
+checks the kernels against their plain twins, and prints one JSON line:
+the kernels' registers, spill bytes and blocks per SM (R1's where the
+source exports them), M1's device time (the replay of a CUDA graph of 50
+calls) at [4096, 2, 576], [1024, 2, 576] and [64, 2, 576] for each run
+length, A3's back-to-back and device time at [16384, 2048], R1's device
+time at [8192, 4096] with k = 4 and at FLAC partitions [131072, 256] with
+k 0..14 by lane, and the SM clock and power draw ``nvidia-smi`` reports
 while M1 runs. It compares variants of a kernel on one card in one go; a
 variant that computes something else on purpose (to see what a part of the
-kernel costs) shows in ``m1_max_abs_err`` / ``a3_bits_equal``. Needs a CUDA
-card and ``nvcc``.
+kernel costs) shows in ``m1_max_abs_err`` / ``a3_bits_equal`` /
+``r1_bits_equal``. Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -125,6 +128,8 @@ def measure(csrc: str) -> dict:
     res["a3_ms"] = round(_event_ms(lambda: ola.ola(*lanes)), 5)
     res["a3_graph_ms"] = round(_graph_ms(lambda: ola.ola(*lanes)), 5)
 
+    res.update(_measure_r1(lib, dev))
+
     # The clock and power while M1 runs: a graph of 200 calls replayed 100
     # times before each reading.
     g = torch.cuda.CUDAGraph()
@@ -139,6 +144,36 @@ def measure(csrc: str) -> dict:
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip()
         torch.cuda.synchronize()
+    return res
+
+
+def _measure_r1(lib, dev) -> dict:
+    """R1 at the bench tool's shape and at FLAC partitions, 33.5M symbols
+    each: bit-equality with the twin (residuals and end cursors) and the
+    device time."""
+    from ..ops import rice_device as rd
+    from ..testing.rice_streams import make_mixed_streams
+
+    res = {}
+    try:
+        res["r1"] = _attributes(lib.rice_decode_attributes)
+    except AttributeError:  # a source from before the export
+        res["r1"] = None
+    data, cur, _ = rd.make_test_streams(8192, 4096, 4)
+    mixed = make_mixed_streams(131072, 256, SEED)
+    for name, (data, cur, par, n) in {
+            "bench": (data, cur, np.full(8192, 4), 4096),
+            "flac_partitions": (mixed[0], mixed[1], mixed[2], 256)}.items():
+        args = (torch.from_numpy(rd.pack_bits_u32(data)).to(dev),
+                torch.from_numpy(cur).to(dev),
+                torch.from_numpy(par.astype(np.int32)).to(dev), n)
+        got, want = rd.rice_decode_lanes(*args), rd.rice_decode_lanes_plain(
+            *args)
+        res[f"r1_bits_equal_{name}"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(got, want))
+        del got, want
+        res[f"r1_graph_ms_{name}"] = round(
+            _graph_ms(lambda: rd.rice_decode_lanes(*args), 10), 5)
     return res
 
 

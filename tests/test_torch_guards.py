@@ -321,6 +321,7 @@ _ATTRIBUTE_EXPORTS = {
     "aac_ola_attributes": "aac_dense.cu",
     "vorbis_imdct_attributes": "vorbis_dense.cu",
     "pcm_unpack_attributes": "pcm.cu",
+    "rice_decode_attributes": "rice_device.cu",
 }
 
 
@@ -329,6 +330,7 @@ def test_attribute_exports_have_c_entry_points(export):
     # Each is an extern "C" function of its kernel's source, on
     # simt_gemm::attributes or the CUDA runtime's queries, and
     # chip_smoke.py reads it.
+    assert len(_ATTRIBUTE_EXPORTS) == 8
     src = (_build.CSRC / _ATTRIBUTE_EXPORTS[export]).read_text()
     assert f'extern "C" int {export}(' in src
     smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
