@@ -88,7 +88,23 @@ Phases (one line each; any failure raises and exits non-zero):
      frames, 16384 Vorbis blocks of 2048) against ``decode_step_plain`` on
      the card: FLAC, AAC and Vorbis bit for bit, MP3 within 1e-5, F1, F2,
      M1, M2, A1, A3, V1 and V2 launched; then a small step with EIGHT_SHORT
-     handoff lanes, which takes A2.
+     handoff lanes, which takes A2;
+  7. ``bench``: ``symphonia_tpu_torch.tools.bench.main()`` at the bench's
+     stage sizes with fewer host passes: its eleven stages and the
+     pipelined aggregate above 0, every kernel of its device stages
+     launched, its stage line and JSON line printed; then each device
+     stage's first output against its plain twin on the card at the same
+     shapes (FLAC bit for bit at 16384 lanes of 4096 with dense order-8
+     coefficients, MP3 within 2e-5, AAC within 1e-5 with A1's dequant
+     prologue bit for bit, Vorbis within 1e-5);
+  8. ``soak``: ``symphonia_tpu_torch.tools.soak.main`` for 60 s from the
+     run's seed on the card (any exception outside the error taxonomy, a
+     native crash or a CUDA error fails it), F1, F2, M1, M2, A1, A3 and V1
+     launched; the first 24 inputs that decoded, decoded again on the CPU
+     (integer samples bit for bit, float within 2e-5 x max(1, peak)); and
+     the soak's edge inputs (one FLAC frame, one MP3 frame or none, one AAC
+     lane, a few Vorbis packets, each also cut short) alone and merged,
+     card against CPU.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -289,78 +305,6 @@ def build_aac(i: int) -> bytes:
         frames.append(build_raw_block(quants, [seq, seq], max_sfb, 140, rate,
                                       shape=int(rng.integers(0, 2))))
     return build_adts(frames, rate, 2)
-
-
-def build_vorbis(rate: int, bs0_exp: int, bs1_exp: int, seconds: float,
-                 seed: int) -> bytes:
-    """A stereo Ogg Vorbis stream of about ``seconds`` at ``rate``, blocks
-    of 2**bs0_exp and 2**bs1_exp samples.
-
-    The setup header and the audio packets are ``tests/vorbis_builder.py``'s
-    stereo variant (floor 0, residue 2, square-polar coupling); the
-    identification header is written here for the rate and block sizes.
-    Packets are rejection-sampled as ``test_vorbis_ogg``'s
-    ``_tame_stereo_stream`` does (floor amplitudes 1-4, kept only if the
-    spectra are finite and below 1e3): the raw builder's floor curves
-    overflow to inf. A quarter of the packets are short blocks, at random.
-    """
-    _paths()
-    from symphonia_tpu_torch.codecs.vorbis import VorbisDecoder
-    from symphonia_tpu_torch.core.codecs import AudioCodecParameters
-    from symphonia_tpu_torch.testing import vorbis_builder as vb
-    from symphonia_tpu_torch.testing.ogg_builder import _ogg_page
-
-    bw = vb.BitWriterLsb()
-    bw.write(0, 32)  # version
-    bw.write(2, 8)   # channels
-    bw.write(rate, 32)
-    bw.write(0, 96)  # bitrates
-    bw.write(bs0_exp, 4)
-    bw.write(bs1_exp, 4)
-    bw.write(1, 1)   # framing
-    ident = b"\x01vorbis" + bw.to_bytes()
-    vendor = b"chip_smoke"
-    comment = (b"\x03vorbis" + len(vendor).to_bytes(4, "little") + vendor
-               + (0).to_bytes(4, "little") + b"\x01")
-    setup = vb.build_setup_header_stereo()
-    params = AudioCodecParameters()
-    params.codec = "vorbis"
-    params.extra_data = ident + setup
-    dec = VorbisDecoder(params)
-    rng = np.random.default_rng(seed)
-    sizes = (1 << bs0_exp, 1 << bs1_exp)
-    pkts = []  # (packet, granule position after it)
-    total, prev = 0, None
-    while total < seconds * rate:
-        long_block = bool(rng.random() < 0.75)
-        # Residue 2 codes min(end, 2 * n2) values in partitions of 8.
-        parts = min(vb.R2_END, sizes[long_block]) // vb.PART_SIZE
-        for _ in range(200):
-            amps = (int(rng.integers(1, 5)), int(rng.integers(1, 5)))
-            fe = tuple((int(rng.integers(0, 16)), int(rng.integers(0, 16)))
-                       for _ in range(2))
-            ce = [int(rng.integers(0, 4)) for _ in range(parts // 2)]
-            pe = [[int(rng.integers(0, 16)) for _ in range(4)]
-                  for _ in range(parts)]
-            pkt = vb.build_audio_packet_stereo(long_block, amps, fe, ce, pe)
-            spectra, _ = dec.decode_spectra(pkt)
-            if np.isfinite(spectra).all() and np.abs(spectra).max() < 1e3:
-                break
-        else:
-            raise RuntimeError("no tame Vorbis packet in 200 tries")
-        if prev is not None:
-            total += (prev + sizes[long_block]) // 4
-        prev = sizes[long_block]
-        pkts.append((pkt, total))
-    serial = 0x5EED + seed
-    pages = [_ogg_page(serial, 0, 0, [ident], header_type=2),
-             _ogg_page(serial, 1, 0, [comment, setup])]
-    for i in range(0, len(pkts), 16):
-        chunk = pkts[i : i + 16]
-        pages.append(_ogg_page(serial, 2 + i // 16, chunk[-1][1],
-                               [p for p, _ in chunk],
-                               header_type=4 if i + 16 >= len(pkts) else 0))
-    return b"".join(pages)
 
 
 def build_mpa_l12(kind: str, frames: int, seed: int) -> bytes:
@@ -1575,6 +1519,9 @@ def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
 def build_inputs():
     """FLAC, MP3, AAC, Vorbis, Layer I/II and per-packet streams from the
     fixed seed, built in worker processes (the slowest first)."""
+    _paths()
+    from symphonia_tpu_torch.testing.vorbis_stream import build_vorbis
+
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
@@ -2123,6 +2070,247 @@ def phase_entry_step(imad_macs_per_s: float) -> dict:
     return info
 
 
+# Phase 7's passes: fewer than the bench's defaults (host 5-20; the late
+# host and breadth passes at most that many), so that the phase fits the
+# run; the stage sizes are the bench's own.
+BENCH_PASSES = dict(passes=3, min_passes=3)
+BENCH_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
+              "mp3_synth", "aac_imdct", "aac_ola", "vorbis_imdct")
+# Phase 8: the soak's budget, the kernels it must launch (it builds no
+# Layer I/II stream) and how many of its decoded inputs are decoded again
+# on the CPU.
+SOAK_SECONDS = 60
+SOAK_PATH = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
+             "aac_imdct", "aac_ola", "vorbis_imdct")
+SOAK_COMPARE = 24
+
+
+def _max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def phase_bench(sizes=None, passes=None) -> dict:
+    """Phase 7: ``tools.bench.main()`` on the card at the bench's stage
+    sizes (``sizes`` overrides them), every stage and the aggregate above
+    0, every kernel of its device stages launched; then each device stage's
+    first output against its plain twin on the card, at the same shapes:
+    FLAC bit for bit, MP3 within 2e-5, AAC within 1e-5 with its dequant
+    prologue bit for bit (A1 on the twin's dequantized coefficients gives
+    the same bits), Vorbis within 1e-5."""
+    import torch
+
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import aac_dense as ad
+    from symphonia_tpu_torch.ops import flac_dense as fd
+    from symphonia_tpu_torch.ops import mp3_dense as md
+    from symphonia_tpu_torch.ops import vorbis_dense as vd
+    from symphonia_tpu_torch.tools import bench
+
+    sizes = sizes or {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = bench.main(device="cuda", sizes=sizes,
+                     **(BENCH_PASSES if passes is None else passes))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    zero = [k for k, v in res["stages"].items() if not v > 0]
+    if len(res["stages"]) != 11 or zero or not res["value"] > 0:
+        raise AssertionError(f"bench: stages at 0 {zero} or aggregate "
+                             f"{res['value']}")
+    missing = [k for k in BENCH_PATH if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"bench: {missing} not launched")
+    dev = torch.device("cuda")
+    checks = {}
+    # FLAC: F1 (with its helper), then F2, bit for bit.
+    kw = {k: v for k, v in sizes.get("flac_device", {}).items()
+          if k != "iters"}
+    t = bench._to(dev, bench.flac_device_inputs(**kw))
+    got = bench.flac_device_call(t)
+    block = t["res"].shape[1]
+    x = fd.apply_wasted_bits(fd.lpc_reconstruct_plain(
+        t["res"], t["coefs"], t["order"], t["shift"], block), t["wasted"])
+    want = fd.decorrelate_plain(x.reshape(-1, 2, block),
+                                t["assign"]).reshape(-1, block)
+    checks["flac_device"] = dict(shape=list(got.shape),
+                                 bits_equal=bool(torch.equal(got, want)))
+    del t, got, x, want
+    # MP3: M1 then M2 from stream start, pcm and both tails.
+    kw = {k: v for k, v in sizes.get("mp3_device", {}).items()
+          if k != "iters"}
+    dense = bench.mp3_device_dense(dev)
+    t = bench._to(dev, bench.mp3_device_inputs(**kw))
+    got = bench.mp3_device_call(dense, t)
+    S, ht = md.mp3_hybrid_plain(t["x"], t["bt"], t["mixed"], None, None,
+                                dense.hybrid, dense.cs, dense.ca, dense.finv)
+    pcm, st = md.mp3_synth_plain(S, dense.matrixing, dense.window, None,
+                                 None)
+    checks["mp3_device"] = dict(
+        shape=list(got[0].shape),
+        max_abs_err=max(_max_err(a, b) for a, b in zip(got, (pcm, ht, st))),
+        peak=float(pcm.abs().max()))
+    del t, got, S, pcm
+    # AAC: A1 with its dequant prologue, then A3.
+    kw = {k: v for k, v in sizes.get("aac_device", {}).items()
+          if k != "iters"}
+    dense = bench.aac_device_dense(dev)
+    bl = bench.aac_bands_long()
+    t = bench._to(dev, bench.aac_device_inputs(**kw))
+    got = bench.aac_device_call(dense, t, bl)
+    quant = dense.quant(t["qbuf"], t["scales"], t["deq"], bl)
+    co = ad.aac_dequant_plain(t["coeffs"], *quant)
+    prologue_bits = torch.equal(ad.aac_imdct(t["coeffs"], dense.imdct_long,
+                                             quant),
+                                ad.aac_imdct(co, dense.imdct_long))
+    want = ad.aac_ola_plain(ad.aac_imdct_plain(co, dense.imdct_long),
+                            t["seq"], t["shape"], t["prev_shape"],
+                            t["first"], *dense.ola_tables)
+    checks["aac_device"] = dict(shape=list(got.shape),
+                                max_abs_err=_max_err(got, want),
+                                peak=float(want.abs().max()),
+                                dequant_bits_equal=bool(prologue_bits))
+    del t, got, co, want
+    # Vorbis: V1 at n = 2048.
+    kw = {k: v for k, v in sizes.get("vorbis_device", {}).items()
+          if k != "iters"}
+    m = bench.vorbis_device_matrix(dev)
+    t = bench._to(dev, bench.vorbis_device_inputs(**kw))
+    got = bench.vorbis_device_call(t, m)
+    want = vd.vorbis_imdct_plain(t["x"], m)
+    checks["vorbis_device"] = dict(shape=list(got.shape),
+                                   max_abs_err=_max_err(got, want),
+                                   peak=float(want.abs().max()))
+    del t, got, want
+    torch.cuda.synchronize()
+    info = {"stages": {k: round(v, 1) for k, v in res["stages"].items()},
+            "pipelined": {k: round(v, 1)
+                          for k, v in res["pipelined"].items()},
+            "value": round(res["value"], 1), "line": res["line"],
+            "first_call_s": {k: round(v, 3)
+                             for k, v in res["first_call_s"].items()},
+            "wall_s": round(wall, 1), "launches": launches,
+            "twins": checks, "card": card_line()}
+    print("phase 7 bench:", json.dumps(info), flush=True)
+    bad = [k for k, c in checks.items() if not (
+        c.get("bits_equal", True) and c.get("dequant_bits_equal", True)
+        and c.get("max_abs_err", 0.0) <= (2e-5 if k == "mp3_device"
+                                          else 1e-5))]
+    if bad:
+        raise AssertionError(f"bench device stages outside their bars: {bad}")
+    return info
+
+
+def phase_soak(seconds: float = SOAK_SECONDS, compare: int = SOAK_COMPARE
+               ) -> dict:
+    """Phase 8: ``tools.soak.main`` on the card for ``seconds`` from the
+    run's seed (any exception outside the decoders' error taxonomy, a
+    native crash or a CUDA error fails it), every kernel of
+    :data:`SOAK_PATH` launched; then the first ``compare`` inputs that
+    decoded, decoded again on the CPU (the plain twins): integer output
+    (FLAC, PCM) bit for bit, float output (MP3, AAC, Vorbis, and the host's
+    float decoders) within 2e-5 x max(1, peak |sample|)."""
+    import logging
+
+    import torch
+
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.testing.edge_streams import edge_inputs
+    from symphonia_tpu_torch.tools import soak
+
+    # The decoders log each corrupt frame they skip; thousands would bury
+    # the run's own lines.
+    quiet = [logging.getLogger(n) for n in ("symphonia_tpu_torch",
+                                            "symphonia_tpu.probe")]
+    levels = [lg.level for lg in quiet]
+    for lg in quiet:
+        lg.setLevel(logging.ERROR)
+    try:
+        _build.reset_launches()
+        res = soak.main(seconds, SEED, device="cuda", keep=compare)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        rows = []
+        for builder, rnd, k, data, samples in res["kept"]:
+            row = {"builder": builder, "round": rnd, "variant": k}
+            try:
+                cpu = batch.decode_bytes(data, device="cpu").samples
+            except soak.OK_ERRORS as e:
+                cpu = repr(e)
+            rows.append(_card_vs_cpu(row, samples, cpu))
+        # The smallest shapes the decoders pack (one FLAC frame, one MP3
+        # frame or none, one AAC lane, a few Vorbis packets, each also cut
+        # short): each alone, then the decodable ones in one decode_many.
+        edge, merged_in = [], []
+        for name, data in edge_inputs(SEED):
+            got, want = (_decode_or_error(batch, soak, data, d)
+                         for d in ("cuda", "cpu"))
+            if isinstance(got, str) or isinstance(want, str):
+                edge.append({"edge": name, "card": got, "cpu": want,
+                             "ok": isinstance(got, str) and got == want})
+                continue
+            edge.append(_card_vs_cpu({"edge": name}, got, want))
+            merged_in.append((name, data, want))
+        merged = batch.decode_many([d for _, d, _ in merged_in],
+                                   device="cuda")
+        edge += [_card_vs_cpu({"edge": name, "merged": True}, out.samples,
+                              want)
+                 for (name, _, want), out in zip(merged_in, merged)]
+        torch.cuda.synchronize()
+    finally:
+        for lg, lv in zip(quiet, levels):
+            lg.setLevel(lv)
+    worst = max((r.get("rel_err", 0.0) for r in rows + edge), default=0.0)
+    info = {"seed": res["seed"], "inputs": res["inputs"],
+            "decoded": res["decoded"], "rounds": res["rounds"],
+            "seconds": round(res["seconds"], 1), "slow": len(res["slow"]),
+            "launches": launches, "compared": len(rows),
+            "edge_compared": len(edge), "worst_rel_err": worst,
+            "card": card_line()}
+    print("phase 8 soak:", json.dumps(info), flush=True)
+    print("phase 8 soak card vs CPU:", json.dumps(rows), flush=True)
+    print("phase 8 edge inputs card vs CPU:", json.dumps(edge), flush=True)
+    missing = [k for k in SOAK_PATH if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"soak: {missing} not launched")
+    bad = [r for r in rows + edge if not r["ok"]]
+    if len(rows) < compare or bad:
+        raise AssertionError(f"soak: {len(rows)} inputs compared, card and "
+                             f"CPU differ on {bad}")
+    return info
+
+
+def _decode_or_error(batch, soak, data: bytes, device: str):
+    """``decode_bytes``'s samples on ``device``, or the name of the
+    taxonomy error it raised."""
+    try:
+        return batch.decode_bytes(data, device=device).samples
+    except soak.OK_ERRORS as e:
+        return type(e).__name__
+
+
+def _card_vs_cpu(row: dict, card, cpu) -> dict:
+    """``row`` with the comparison of the card's samples with the CPU's (or
+    the CPU's error): integer samples bit for bit, float samples within
+    2e-5 x max(1, peak |sample|)."""
+    row.update(shape=list(card.shape), dtype=str(card.dtype))
+    if isinstance(cpu, str) or cpu.shape != card.shape or (
+            cpu.dtype != card.dtype):
+        row.update(ok=False, cpu=cpu if isinstance(cpu, str) else
+                   list(cpu.shape))
+    elif np.issubdtype(card.dtype, np.integer):
+        row["ok"] = bool(np.array_equal(cpu, card))
+    else:
+        err = float(np.abs(cpu.astype(np.float64) - card).max(initial=0.0))
+        peak = float(np.abs(cpu).max(initial=0.0))
+        row.update(max_abs_err=err, peak=peak,
+                   rel_err=err / max(1.0, peak),
+                   ok=bool(err <= 2e-5 * max(1.0, peak)),
+                   bits_equal=bool(np.array_equal(cpu, card)))
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2131,6 +2319,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     _paths()
+    t_start = time.perf_counter()
     env = phase_env()
     kern = phase_kernels()
     kern.update(phase_aac_kernels())
@@ -2143,9 +2332,12 @@ def main() -> int:
     rb = phase_rice_bench()
     kern["rice_decode"] = rb["kernel"]
     st = phase_entry_step(kern["flac_lpc"]["imad_macs_per_s"])
+    bn = phase_bench()
+    sk = phase_soak()
     paths = {"decode_many": sl["launches"], "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
-             "entry_step_handoff": st["handoff_launches"]}
+             "entry_step_handoff": st["handoff_launches"],
+             "bench": bn["launches"], "soak": sk["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -2172,6 +2364,8 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
+    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

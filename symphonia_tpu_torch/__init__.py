@@ -17,19 +17,49 @@ through the reference's per-packet loop on the host, counted in
 reference's driver entry point through :mod:`.entry`; and the last two TPU
 programs, K12 (the PCM batch unpack, ``ops.pcm.decode_pcm_batch``) and K13
 (the device Rice decode, ``ops.rice_device.rice_decode_lanes`` and
-``tools/bench_rice_device.py``). The multi-card form of the entry step is
-not ported yet.
+``tools/bench_rice_device.py``); and the repository's bench and mutation
+soak (``tools/bench.py``, ``tools/soak.py``). The multi-card form of the
+entry step is not ported yet.
 
-Facade (as the reference's, symphonia/src/lib.rs): lazily constructed
-global ``Probe`` and ``CodecRegistry`` with every enabled format and codec
-registered.
+Facade (as the reference's, symphonia/src/lib.rs): the same top-level
+names as the reference package (its core types and errors, and
+``MediaSourceStream``), from this package's own ``core``; lazily
+constructed global ``Probe`` and ``CodecRegistry`` with every enabled
+format and codec registered.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from .core import CodecRegistry, Probe
+from .core import (  # noqa: F401  (re-exports)
+    AudioBuffer,
+    AudioCodecParameters,
+    AudioDecoder,
+    AudioDecoderOptions,
+    AudioSpec,
+    Channels,
+    CodecRegistry,
+    DecodeError,
+    EndOfStream,
+    Error,
+    FormatOptions,
+    FormatReader,
+    Hint,
+    IoError,
+    MetadataOptions,
+    Packet,
+    Probe,
+    ResetRequired,
+    SampleFormat,
+    SeekMode,
+    SeekTo,
+    Time,
+    TimeBase,
+    Track,
+    Unsupported,
+)
+from .core.io import MediaSourceStream
 
 __version__ = "0.1.0"
 

@@ -1,6 +1,7 @@
 """IMA and MS ADPCM encoders and their WAV container for decoder tests:
 ``ima_encode``, ``ms_encode`` and ``make_adpcm_wav`` of
-``tests/test_adpcm.py``, copied; the tables they read are the decoder's."""
+``tests/test_adpcm.py``, copied with its test signal ``smooth_signal``; the
+tables they read are the decoder's."""
 
 import struct
 
@@ -108,3 +109,9 @@ def make_adpcm_wav(payload: bytes, fmt_tag: int, block_align: int,
     chunks += b"fact" + struct.pack("<II", 4, n_frames)
     chunks += b"data" + struct.pack("<I", len(payload)) + payload
     return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" + chunks
+
+
+def smooth_signal(n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.integers(-400, 401, size=n))
+    return np.clip(x, -30000, 30000).astype(np.int32)

@@ -1,6 +1,8 @@
 """A minimal EBML (Matroska) muxer for decoder tests: ``vint_size``,
-``elem``, ``uint_elem``, ``float_elem``, ``simple_block`` and ``build_mkv``
-of ``tests/test_mkv.py``, copied."""
+``elem``, ``uint_elem``, ``float_elem``, ``simple_block``, ``build_mkv``,
+the tag elements ``targets_elem``, ``simple_tag``, ``tag_elem`` and
+``tags_elem``, and the blocks ``_sb_flags`` (a SimpleBlock with its flags
+byte) and ``_block_group`` of ``tests/test_mkv.py``, copied."""
 
 import struct
 
@@ -77,3 +79,50 @@ def build_mkv(codec_id: str, private: bytes, blocks, rate=44100, ch=1,
     segment = elem(0x18538067, info + tracks + clusters + tags_data
                    + extra_segment)
     return ebml_hdr + segment
+
+
+def targets_elem(level=None, name=None, track_uids=(), chapter_uids=()):
+    body = b""
+    if level is not None:
+        body += uint_elem(0x68CA, level)
+    if name:
+        body += elem(0x63CA, name.encode())
+    for u in track_uids:
+        body += uint_elem(0x63C5, u)
+    for u in chapter_uids:
+        body += uint_elem(0x63C4, u)
+    return elem(0x63C0, body)
+
+
+def simple_tag(name, value=None, subs=b""):
+    body = elem(0x45A3, name.encode())
+    if value is not None:
+        body += elem(0x4487, value.encode())
+    return elem(0x67C8, body + subs)
+
+
+def tag_elem(simple_tags, targets=b""):
+    return elem(0x7373, targets + b"".join(simple_tags))
+
+
+def tags_elem(*tag_elems):
+    return elem(0x1254C367, b"".join(tag_elems))
+
+
+def _sb_flags(track: int, rel_ts: int, frame: bytes, flags: int) -> bytes:
+    """SimpleBlock with an explicit flags byte (0x80 = keyframe)."""
+    body = bytes([0x80 | track]) + struct.pack(">h", rel_ts) \
+        + bytes([flags]) + frame
+    return elem(0xA3, body)
+
+
+def _block_group(track: int, rel_ts: int, frame: bytes, bdur=None,
+                 ref=None) -> bytes:
+    """BlockGroup: Block (+ BlockDuration, + ReferenceBlock)."""
+    blk = bytes([0x80 | track]) + struct.pack(">h", rel_ts) + b"\x00" + frame
+    payload = elem(0xA1, blk)
+    if bdur is not None:
+        payload += uint_elem(0x9B, bdur)
+    if ref is not None:
+        payload += elem(0xFB, struct.pack(">b", ref))
+    return elem(0xA0, payload)

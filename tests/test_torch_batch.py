@@ -286,7 +286,7 @@ def _vorbis():
     """(name, bytes): house_lo.ogg (mono, one block size) and short stereo
     builder streams, tamed as chip_smoke.py builds them, at 44.1 kHz with
     blocks of 256/2048 and at 48 kHz with 512/4096."""
-    from chip_smoke import build_vorbis
+    from symphonia_tpu_torch.testing.vorbis_stream import build_vorbis
 
     return (("house", HOUSE_OGG.read_bytes()),
             ("b44k_a", build_vorbis(44100, 8, 11, 1.0, 31)),

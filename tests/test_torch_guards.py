@@ -139,6 +139,8 @@ def test_port_sources_import_no_jax():
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 60
+    for tool in ("bench.py", "soak.py"):
+        assert os.path.join(pkg, "tools", tool) in paths
     for path in paths:
         for name in _imported_modules(path):
             assert name.split(".")[0] not in ("symphonia_tpu", "jax",
@@ -163,6 +165,13 @@ def test_port_sources_import_no_jax():
     lambda: _bench_rice_device().main(),
     lambda: _batch_serving().main(["any.wav"]),
     lambda: _time_kernel_variants().measure("any"),
+    lambda: _bench().main(),
+    lambda: _bench().bench_flac_device(),
+    lambda: _bench().bench_mp3_device(),
+    lambda: _bench().bench_aac_device(),
+    lambda: _bench().bench_vorbis_device(),
+    lambda: _soak().main(),
+    lambda: _soak().main(1.0, 7, device="cuda"),
 ])
 def test_cuda_without_cuda_raises(make):
     if torch.cuda.is_available():
@@ -204,6 +213,18 @@ def _batch_serving():
     return batch_serving
 
 
+def _bench():
+    from symphonia_tpu_torch.tools import bench
+
+    return bench
+
+
+def _soak():
+    from symphonia_tpu_torch.tools import soak
+
+    return soak
+
+
 def test_device_is_required():
     # Every entry point takes a device, and without one it is the card.
     import inspect
@@ -212,7 +233,10 @@ def test_device_is_required():
                port.AacBatchDecoder, port.VorbisBatchDecoder,
                port.decode_bytes, port.decode_file, port.decode_many,
                entry.entry, _bench_rice_device().main,
-               _batch_serving().main):
+               _batch_serving().main, _bench().main,
+               _bench().bench_flac_device, _bench().bench_mp3_device,
+               _bench().bench_aac_device, _bench().bench_vorbis_device,
+               _soak().main):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(ValueError):
         port.FlacBatchDecoder(device="meta")
@@ -400,9 +424,9 @@ def test_codec_in_slice_decodes(make, channels):
 
 
 def test_example_and_bench_tool_never_import_jax(tmp_path):
-    # The per-packet path, the batch serving example and the Rice bench
-    # tool run in a fresh interpreter that refuses the reference package
-    # and JAX.
+    # The per-packet path, the batch serving example, the Rice bench tool,
+    # the bench and the soak run in a fresh interpreter that refuses the
+    # reference package and JAX.
     (tmp_path / "a.wav").write_bytes(_wav())
     (tmp_path / "b.wav").write_bytes(_adpcm())
     code = _REFUSE + textwrap.dedent("""
@@ -417,6 +441,14 @@ def test_example_and_bench_tool_never_import_jax(tmp_path):
         assert batch.packet_routes == 2
         res = bench_rice_device.main(B=8, n=16, k=4, iters=1, device="cpu")
         assert res["correct_slice"] is True
+        from symphonia_tpu_torch.tools import bench, soak
+        res = bench.main(device="cpu", passes=1, min_passes=1, sizes={
+            "flac_device": dict(n_frames=2, block=256, iters=1),
+            "mp3_device": dict(n_granules=4, iters=1),
+            "aac_device": dict(n_frames=4, iters=1),
+            "vorbis_device": dict(n_lanes=4, iters=1)})
+        assert len(res["stages"]) == 11 and res["value"] > 0
+        assert soak.main(30, 3, device="cpu", max_inputs=6)["inputs"] == 6
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("symphonia_tpu", "jax", "jaxlib")]
         assert not bad, bad

@@ -87,12 +87,16 @@ PARTS = [
     ("test_aiff_caf", "symphonia_tpu_torch.testing.aiff_caf_builder",
      ("pack_f80", "make_aiff", "make_caf")),
     ("test_adpcm", "symphonia_tpu_torch.testing.adpcm_builder",
-     ("ima_encode", "ms_encode", "make_adpcm_wav")),
+     ("ima_encode", "ms_encode", "make_adpcm_wav", "smooth_signal")),
     ("test_mkv", "symphonia_tpu_torch.testing.mkv_builder",
      ("vint_size", "elem", "uint_elem", "float_elem", "simple_block",
-      "build_mkv")),
+      "build_mkv", "targets_elem", "simple_tag", "tag_elem", "tags_elem",
+      "_sb_flags", "_block_group")),
     ("test_mp4", "symphonia_tpu_torch.testing.mp4_builder",
-     ("atom", "full_atom", "build_pcm_m4a")),
+     ("atom", "full_atom", "build_pcm_m4a", "build_m4a", "build_fmp4",
+      "build_av_mp4", "build_fmp4_video")),
+    ("test_metadata", "symphonia_tpu_torch.testing.metadata_builder",
+     ("syncsafe", "build_id3v2", "text_frame")),
 ]
 
 
