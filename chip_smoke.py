@@ -97,14 +97,29 @@ Phases (one line each; any failure raises and exits non-zero):
      shapes (FLAC bit for bit at 16384 lanes of 4096 with dense order-8
      coefficients, MP3 within 2e-5, AAC within 1e-5 with A1's dequant
      prologue bit for bit, Vorbis within 1e-5);
-  8. ``soak``: ``symphonia_tpu_torch.tools.soak.main`` for 60 s from the
+  8. ``soak``: ``symphonia_tpu_torch.tools.soak.main`` for 30 s from the
      run's seed on the card (any exception outside the error taxonomy, a
      native crash or a CUDA error fails it), F1, F2, M1, M2, A1, A3 and V1
      launched; the first 24 inputs that decoded, decoded again on the CPU
      (integer samples bit for bit, float within 2e-5 x max(1, peak)); and
      the soak's edge inputs (one FLAC frame, one MP3 frame or none, one AAC
      lane, a few Vorbis packets, each also cut short) alone and merged,
-     card against CPU.
+     card against CPU;
+  9. ``multichip``: ``symphonia_tpu_torch.entry.dryrun_multichip``, the
+     combined step sharded over a (dp, tp) mesh of ranks (one process
+     each, ``torch.distributed``), with the halos where the step couples
+     lanes: one rank under NCCL at phase 6's full width, eight gloo ranks
+     sharing the card at the reference's sizes (dp = 4, tp = 2), four at
+     full width (dp = 2, tp = 2) and six (dp = 3, lanes that 3 does not
+     divide); each held to the unsharded step on the card (FLAC bit for
+     bit, MP3, AAC and Vorbis within 1e-5, bit-equality printed) and to
+     the plain twins' step on the card on the same inputs (FLAC and Vorbis
+     bit for bit, MP3 and AAC within 1e-5: cuBLAS, the plain AAC product,
+     sums in an order that depends on the row count, which the phase
+     shows at the reference's sizes), with each rank's copy of its
+     lanes to the card and its step (CUDA events) and its gather time
+     beside the card's name and power limit, F1 and its helper, F2, M1,
+     M2, A1, A3, V1 and V2 launched (summed over ranks).
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -2078,8 +2093,9 @@ BENCH_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
               "mp3_synth", "aac_imdct", "aac_ola", "vorbis_imdct")
 # Phase 8: the soak's budget, the kernels it must launch (it builds no
 # Layer I/II stream) and how many of its decoded inputs are decoded again
-# on the CPU.
-SOAK_SECONDS = 60
+# on the CPU. The budget was 60 s before phase 9 (~100 s, most of it the
+# ranks' process and CUDA context starts) joined the run.
+SOAK_SECONDS = 30
 SOAK_PATH = ("flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
              "aac_imdct", "aac_ola", "vorbis_imdct")
 SOAK_COMPARE = 24
@@ -2281,6 +2297,102 @@ def phase_soak(seconds: float = SOAK_SECONDS, compare: int = SOAK_COMPARE
     return info
 
 
+# Phase 9: the multi-card shell (entry.dryrun_multichip) on the one card:
+# (ranks, backend, size). One rank under NCCL at the entry step's full
+# width; eight gloo ranks at the reference's own sizes (dp = 4, tp = 2);
+# the full width split over dp = 2, tp = 2; six ranks (dp = 3) at the
+# reference's sizes, whose 1024 lanes dp does not divide. The kernels it
+# must launch, summed over ranks: the entry step's.
+MULTICHIP_RUNS = ((1, "nccl", STEP_SIZE), (8, "gloo", None),
+                  (4, "gloo", STEP_SIZE), (6, "gloo", None))
+MULTICHIP_PATH = STEP_PATH
+
+
+def _plain_aac_row_split(device="cuda") -> dict:
+    """The plain AAC step's long-window product (A1's twin with its dequant
+    prologue) on the dry run's inputs at the reference's sizes, over all
+    its rows against the same over two halves of them: the largest
+    difference and bit-equality."""
+    import torch
+
+    from symphonia_tpu_torch import entry
+    from symphonia_tpu_torch.codecs.aac import EIGHT_SHORT
+    from symphonia_tpu_torch.ops import aac_dense
+
+    host = entry.example_batch(F=512, N=256, G=1024, A=1024, V=1024, n1=512,
+                               seed=1, aac_rate=48000)
+    coeffs, qbuf, scales, deq, seqs = (torch.from_numpy(a).to(device)
+                                       for a in host[9:14])
+    sfb = torch.from_numpy(host[16]).to(device)
+    aac = entry._constants(torch.device(device)).aac
+    rows = torch.nonzero(seqs != EIGHT_SHORT).flatten()
+
+    def product(r):
+        quant = tuple(t.index_select(0, r) for t in (qbuf, scales, deq))
+        return aac_dense.aac_imdct_plain(coeffs.index_select(0, r),
+                                         aac.imdct_long,
+                                         quant + (sfb, aac.pow43))
+
+    whole = product(rows)
+    halves = torch.cat([product(r) for r in rows.chunk(2)])
+    return {"rows": len(rows), "max_abs_err": _max_err(whole, halves),
+            "bits_equal": _bits_equal(whole, halves)}
+
+
+def phase_multichip(runs=MULTICHIP_RUNS) -> dict:
+    """Phase 9: ``entry.dryrun_multichip`` for each of ``runs`` on the card,
+    each held (inside it, on rank 0) to the unsharded ``decode_step`` on
+    the card (FLAC bit for bit, MP3, AAC and Vorbis within 1e-5,
+    bit-equality printed) and to the plain twins' step on the card on the
+    same inputs (FLAC and Vorbis bit for bit, MP3 and AAC within 1e-5,
+    bit-equality printed), so that each kernel is held to its twin at
+    these shapes too (the reference's sizes: FLAC N = 256, Vorbis n1 =
+    512, the 48 kHz band map). ``plain_aac_row_split`` shows why AAC's bar
+    is not bits: the plain step's long-window product at the reference's
+    sizes against the same product over two halves of its rows. Each rank sets its counts to 0 just before its sharded step and
+    reads them just after (its warm-up and rank 0's unsharded step are not
+    counted); the launches are summed over ranks and runs."""
+    import torch
+
+    from symphonia_tpu_torch import entry
+    from symphonia_tpu_torch.ops import _build
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    launches = {k: 0 for k in _build.KERNELS}
+    rows = []
+    for n, backend, size in runs:
+        t0 = time.perf_counter()
+        res = entry.dryrun_multichip(n, backend=backend, size=size,
+                                     **({"seed": SEED} if size else {}))
+        wall = time.perf_counter() - t0
+        for k, v in res["launches"].items():
+            launches[k] += v
+        outs = res.pop("outputs")
+        if not all(np.isfinite(o).all() for o in outs.values()):
+            raise AssertionError(f"multichip {n} {backend}: not finite")
+        rows.append({"ranks": n, "backend": backend, "mesh": res["mesh"],
+                     "size": res["size"], "seed": res["seed"],
+                     "devices": res["devices"], "h2d_ms": res["h2d_ms"],
+                     "step_ms": res["step_ms"],
+                     "gather_ms": res["gather_ms"],
+                     "max_abs_err": res["max_abs_err"],
+                     "bits_equal": res["bits_equal"],
+                     "max_abs_err_vs_plain": res["max_abs_err_vs_plain"],
+                     "bit_exact_vs_plain": res["bit_exact_vs_plain"],
+                     "launches": {k: v for k, v in res["launches"].items()
+                                  if v},
+                     "shapes": {k: list(o.shape) for k, o in outs.items()},
+                     "wall_s": round(wall, 2)})
+        del outs
+    info = {"runs": rows, "launches": launches,
+            "plain_aac_row_split": _plain_aac_row_split(), "card": card_line()}
+    print("phase 9 multichip:", json.dumps(info), flush=True)
+    missing = [k for k in MULTICHIP_PATH if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"multichip: {missing} not launched")
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -2334,10 +2446,12 @@ def main() -> int:
     st = phase_entry_step(kern["flac_lpc"]["imad_macs_per_s"])
     bn = phase_bench()
     sk = phase_soak()
+    mc = phase_multichip()
     paths = {"decode_many": sl["launches"], "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
-             "bench": bn["launches"], "soak": sk["launches"]}
+             "bench": bn["launches"], "soak": sk["launches"],
+             "multichip": mc["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -2364,7 +2478,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

@@ -17,9 +17,12 @@ through the reference's per-packet loop on the host, counted in
 reference's driver entry point through :mod:`.entry`; and the last two TPU
 programs, K12 (the PCM batch unpack, ``ops.pcm.decode_pcm_batch``) and K13
 (the device Rice decode, ``ops.rice_device.rice_decode_lanes`` and
-``tools/bench_rice_device.py``); and the repository's bench and mutation
-soak (``tools/bench.py``, ``tools/soak.py``). The multi-card form of the
-entry step is not ported yet.
+``tools/bench_rice_device.py``); the repository's bench and mutation
+soak (``tools/bench.py``, ``tools/soak.py``); its conformance checker,
+player and resampler (``tools/check.py``, ``play.py``, ``resample.py``,
+``ui.py``) and its examples; and the multi-card form of the entry step
+(``entry.dryrun_multichip`` over :mod:`.parallel`, ``torch.distributed``
+ranks with halos where the step couples lanes).
 
 Facade (as the reference's, symphonia/src/lib.rs): the same top-level
 names as the reference package (its core types and errors, and

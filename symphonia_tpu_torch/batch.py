@@ -885,22 +885,26 @@ def decode_many(datas: Sequence[bytes], *, device="cuda",
 
     The serving entry point: streams are probed and grouped by codec;
     FLAC, MP3 Layer III, AAC and Vorbis groups each share merged
-    dispatches, and Layer I/II streams decode one by one, as in the
-    reference. Streams that no batch pipeline takes decode through the
-    per-packet loop, in input order, before the groups. Output order
-    matches input order. Fail-fast: an undecodable stream raises what
-    ``decode_bytes`` raises for it."""
+    dispatches. Layer I/II streams, and streams that no batch pipeline
+    takes (through the per-packet loop), decode one by one in input order
+    while the batch is probed, before the groups, as in the reference
+    (``symphonia_tpu/batch.py:645-666``). Output order matches input order.
+    Fail-fast: an undecodable stream raises what ``decode_bytes`` raises
+    for it, and the first to raise is the reference's."""
     resolve_device(device)
     routes = []
     results: List[Optional[DecodedAudio]] = [None] * len(datas)
+    mpa = Mp3BatchDecoder(device=device)
     for i, data in enumerate(datas):
         route, fmt, track = _probe(data)
         routes.append(route)
         if route == "packet":
             results[i] = _packet_decode(fmt, track, verify)
+        elif route in ("mp1", "mp2"):
+            results[i] = mpa.decode_bytes(data)
     for codecs, dec in (
             (("flac",), FlacBatchDecoder(device=device, verify=verify)),
-            (_MPA, Mp3BatchDecoder(device=device)),
+            (("mp3",), mpa),
             (("aac",), AacBatchDecoder(device=device)),
             (("vorbis",), VorbisBatchDecoder(device=device))):
         idx = [i for i, r in enumerate(routes) if r in codecs]

@@ -22,6 +22,10 @@ lane batch, composed of the port's kernels:
 the reference's ``_example_batch`` (``:126``), equal array by array, and
 :func:`entry` gives ``(fn, args)`` as the reference's ``entry()`` does,
 with ``args`` as tensors on the card unless the caller asks for the CPU.
+:func:`dryrun_multichip` is the reference's (``:181``): the step sharded
+over a (dp, tp) mesh of ``torch.distributed`` ranks (:mod:`.parallel`),
+one codec stage at a time (:func:`flac_step`, :func:`mp3_step`,
+:func:`aac_step`, :func:`vorbis_step`).
 """
 
 from __future__ import annotations
@@ -126,39 +130,42 @@ def _stages(plain: bool) -> SimpleNamespace:
         ola=ad.aac_ola, vorbis_imdct=vd.vorbis_imdct, lap=vd.vorbis_lap)
 
 
-def _step(k: SimpleNamespace, flac_res, flac_coefs, flac_order, flac_shift,
-          flac_wasted, flac_assign, mp3_spectra, mp3_bt, mp3_mixed,
-          aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs, aac_shapes,
-          aac_prev_shapes, aac_sfb, vorb_spec, n_samples: int):
-    dev = flac_res.device
-    c = _constants(dev)
+def flac_step(k: SimpleNamespace, res, coefs, order, shift, wasted, assign,
+              n_samples: int):
+    """FLAC: F1 over the ``[2F, N]`` channel lanes, then F2 over
+    ``[F, 2, N]``. Frames are independent."""
+    x = k.lpc(res, coefs, order, shift, n_samples, wasted)
+    F = res.shape[0] // 2
+    return k.decorrelate(x.reshape(F, 2, n_samples), assign)
 
-    # --- FLAC ---
-    x = k.lpc(flac_res, flac_coefs, flac_order, flac_shift, n_samples,
-              flac_wasted)
-    F = flac_res.shape[0] // 2
-    flac_pcm = k.decorrelate(x.reshape(F, 2, n_samples), flac_assign)
 
-    # --- MP3: one stream, zero carried state ---
-    mp3 = c.mp3
-    S, _ = k.hybrid(mp3_spectra, mp3_bt, mp3_mixed, None, None, mp3.hybrid,
-                    mp3.cs, mp3.ca, mp3.finv)
-    mp3_pcm, _ = k.synth(S, mp3.matrixing, mp3.window, None, None)
+def mp3_step(k: SimpleNamespace, spectra, bt, mixed):
+    """MP3: M1 then M2 over the ``G`` granules as one stream, zero carried
+    state at granule 0."""
+    mp3 = _constants(spectra.device).mp3
+    S, _ = k.hybrid(spectra, bt, mixed, None, None, mp3.hybrid, mp3.cs,
+                    mp3.ca, mp3.finv)
+    pcm, _ = k.synth(S, mp3.matrixing, mp3.window, None, None)
+    return pcm
 
-    # --- AAC: dequantize the handoff lanes, one IMDCT per window class,
-    # then the window/overlap-add over the batch as one sequence ---
-    aac = c.aac
-    A = aac_coeffs.shape[0]
-    is_short = aac_seqs == EIGHT_SHORT
+
+def aac_step(k: SimpleNamespace, coeffs, qbuf, scales, deq, seqs, shapes,
+             prev_shapes, sfb):
+    """AAC: dequantize the handoff lanes, one IMDCT per window class, then
+    the window/overlap-add over the batch as one sequence (lane 0 starts
+    it)."""
+    dev = coeffs.device
+    aac = _constants(dev).aac
+    A = coeffs.shape[0]
+    is_short = seqs == EIGHT_SHORT
     aac_time = torch.empty((A, 2048), dtype=torch.float32, device=dev)
     for rows, short in ((torch.nonzero(~is_short).flatten(), False),
                         (torch.nonzero(is_short).flatten(), True)):
         if not rows.numel():
             continue
-        x = aac_coeffs.index_select(0, rows)
+        x = coeffs.index_select(0, rows)
         quant = tuple(t.index_select(0, rows)
-                      for t in (aac_qbuf, aac_scales, aac_deq)) + (
-                          aac_sfb, aac.pow43)
+                      for t in (qbuf, scales, deq)) + (sfb, aac.pow43)
         if not short:
             y = k.imdct(x, aac.imdct_long, quant)
         else:
@@ -168,14 +175,27 @@ def _step(k: SimpleNamespace, flac_res, flac_coefs, flac_order, flac_shift,
         aac_time.index_copy_(0, rows, y.reshape(-1, 2048))
     first = torch.zeros(A, dtype=torch.bool, device=dev)
     first[0] = True
-    aac_pcm = k.ola(aac_time, aac_seqs, aac_shapes, aac_prev_shapes, first,
-                    *aac.ola_tables)
+    return k.ola(aac_time, seqs, shapes, prev_shapes, first, *aac.ola_tables)
 
-    # --- Vorbis: one block size n1, then the lap of consecutive lanes ---
-    n1 = 2 * vorb_spec.shape[1]
-    vorb_time = k.vorbis_imdct(vorb_spec, c.vorbis.matrix(n1))
-    vorb_pcm = k.lap(vorb_time, c.window(n1))
-    return flac_pcm, mp3_pcm, aac_pcm, vorb_pcm
+
+def vorbis_step(k: SimpleNamespace, spec):
+    """Vorbis: V1 at block size ``n1 = 2 * spec.shape[1]``, then V2's lap
+    of consecutive lanes (lane 0 with a zero overlap)."""
+    c = _constants(spec.device)
+    n1 = 2 * spec.shape[1]
+    return k.lap(k.vorbis_imdct(spec, c.vorbis.matrix(n1)), c.window(n1))
+
+
+def _step(k: SimpleNamespace, flac_res, flac_coefs, flac_order, flac_shift,
+          flac_wasted, flac_assign, mp3_spectra, mp3_bt, mp3_mixed,
+          aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs, aac_shapes,
+          aac_prev_shapes, aac_sfb, vorb_spec, n_samples: int):
+    return (flac_step(k, flac_res, flac_coefs, flac_order, flac_shift,
+                      flac_wasted, flac_assign, n_samples),
+            mp3_step(k, mp3_spectra, mp3_bt, mp3_mixed),
+            aac_step(k, aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs,
+                     aac_shapes, aac_prev_shapes, aac_sfb),
+            vorbis_step(k, vorb_spec))
 
 
 def decode_step(*args, n_samples: int) -> Tuple[torch.Tensor, ...]:
@@ -203,3 +223,134 @@ def entry(device="cuda"):
     args = tuple(torch.from_numpy(a).to(dev)
                  for a in example_batch(F=8, N=N, G=8, A=8, V=8))
     return partial(decode_step, n_samples=N), args
+
+
+_NAMES = ("flac", "mp3", "aac", "vorbis")
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _compare(got, want) -> Tuple[dict, dict]:
+    """Each output's largest absolute difference and bit-equality."""
+    return ({n: float((g.double() - w.double()).abs().max())
+             for n, g, w in zip(_NAMES, got, want)},
+            {n: g.shape == w.shape and _bits_equal(g, w)
+             for n, g, w in zip(_NAMES, got, want)})
+
+
+def _dryrun_rank(rank, mesh, size: dict, seed: int) -> dict:
+    """One rank of :func:`dryrun_multichip`: the example batch made from
+    ``seed``, the sharded step once to warm up (the constants and the
+    allocator's blocks on the device, every kernel loaded, NCCL's
+    communicator made), then again, timed, with the launches it made;
+    rank 0 also runs the unsharded step and the plain twins' step on its
+    device and compares the gathered outputs with both."""
+    from .ops import _build
+    from .parallel.step import sharded_step
+
+    host = example_batch(**size, seed=seed, aac_rate=48000)
+    N = size["N"]
+    sharded_step(host, N, mesh, rank.rank, rank.device)
+    _build.reset_launches()
+    outs, times = sharded_step(host, N, mesh, rank.rank, rank.device)
+    res = {"rank": rank.rank, "device": str(rank.device),
+           "launches": dict(_build.LAUNCHES), **times}
+    if rank.rank == 0:
+        args = tuple(torch.from_numpy(a).to(rank.device) for a in host)
+        ref = decode_step(*args, n_samples=N)
+        res["max_abs_err"], res["bits_equal"] = _compare(outs, ref)
+        res["ref_shapes"] = {n: tuple(w.shape) for n, w in zip(_NAMES, ref)}
+        del ref
+        plain = decode_step_plain(*args, n_samples=N)
+        res["max_abs_err_vs_plain"], res["bit_exact_vs_plain"] = _compare(
+            outs, plain)
+        res["outputs"] = {n: g.cpu().numpy() for n, g in zip(_NAMES, outs)}
+    return res
+
+
+def _check_rank0(r0: dict) -> None:
+    """Raise unless rank 0's gathered outputs have the unsharded step's
+    shapes and meet the bars of :func:`dryrun_multichip` against the
+    unsharded step and the plain twins' step."""
+    for name in _NAMES:
+        got = r0["outputs"][name].shape
+        if got != r0["ref_shapes"][name]:
+            raise AssertionError(f"{name}: sharded {got} vs single-device "
+                                 f"{r0['ref_shapes'][name]}")
+    if not r0["bits_equal"]["flac"]:
+        raise AssertionError("flac sharded vs single-device mismatch")
+    for name in _NAMES[1:]:
+        if not r0["max_abs_err"][name] <= 1e-5:
+            raise AssertionError(f"{name} sharded vs single-device mismatch:"
+                                 f" {r0['max_abs_err'][name]:.3g} > 1e-5")
+    # Against the plain twins' step: FLAC bit for bit, and on the card
+    # Vorbis too; MP3 and AAC within 1e-5, bit-equality reported. The plain
+    # AAC step's long-window product is cuBLAS's, whose sum order changes
+    # with the row count: at the reference's sizes (778 long rows) it is not
+    # the same product over all the rows as over two halves of them, so A1
+    # (one order at every row count) cannot equal it bit for bit there. On
+    # the CPU the plain step is the unsharded step (the twins), whose
+    # products sum in an order that depends on the row count: the
+    # reference's bars there, as above.
+    on_card = torch.device(r0["device"]).type == "cuda"
+    exact = ("flac", "vorbis") if on_card else ("flac",)
+    for name in _NAMES:
+        err = r0["max_abs_err_vs_plain"][name]
+        if not (r0["bit_exact_vs_plain"][name] if name in exact
+                else err <= 1e-5):
+            raise AssertionError(
+                f"{name} sharded vs the plain step: max |err| {err:.3g}, "
+                + ("not bit for bit" if name in exact else "> 1e-5"))
+
+
+def dryrun_multichip(n_devices: int, device="cuda", backend=None,
+                     size=None, seed: int = 1) -> dict:
+    """The combined decode step over ``n_devices`` ranks, the counterpart of
+    the reference's ``dryrun_multichip`` (``__graft_entry__.py:181``): the
+    same (dp, tp) mesh (tp = 2 when ``n_devices`` is even), the same
+    batch (``lanes = max(1024, 128 * dp)`` a codec, FLAC frames of ``128 *
+    tp`` samples, Vorbis blocks of 512, the 48 kHz band map, ``seed``), or
+    ``size`` (``example_batch``'s F, N, G, A, V, n1) at the same rate and
+    seed. Each rank is a process (``parallel.step.spawn``) in a
+    ``backend`` process group: ``"nccl"`` with rank r on card r, ``"gloo"``
+    with the ranks sharing the cards (or on the CPU with ``device="cpu"``).
+    Lane counts that dp does not divide are padded and cut after the
+    gather. Asserts what the reference asserts against the step run
+    unsharded on the same device: FLAC equal, MP3, AAC and Vorbis within
+    1e-5; and against the plain twins' step on the same device: on the
+    card FLAC and Vorbis bit for bit, MP3 and AAC within 1e-5 (on the
+    CPU, where the plain step is the unsharded one, the same bars as
+    above).
+    Returns the mesh, sizes, each rank's times (its lanes to the device,
+    its stages, the gathers; ``parallel.step.sharded_step``), the errors
+    and bit-equality against both steps, the launches summed over ranks
+    and rank 0's gathered outputs (numpy)."""
+    from .parallel.mesh import make_mesh
+    from .parallel.step import spawn
+
+    sp = 2 if n_devices % 2 == 0 else 1
+    dp = n_devices // sp
+    mesh = make_mesh(n_devices, dp=dp, tp=sp)
+    if size is None:
+        lanes = max(1024, 128 * dp)
+        size = dict(F=lanes // 2, N=128 * sp, G=lanes, A=lanes, V=lanes,
+                    n1=512)
+    ranks = spawn(n_devices, _dryrun_rank, (mesh, dict(size), seed),
+                  backend=backend, device=device)
+    r0 = ranks[0]
+    _check_rank0(r0)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return {"mesh": [mesh.dp, mesh.tp], "backend": backend,
+            "devices": [r["device"] for r in ranks], "size": dict(size),
+            "seed": seed, "h2d_ms": [r["h2d_ms"] for r in ranks],
+            "step_ms": [r["step_ms"] for r in ranks],
+            "gather_ms": [r["gather_ms"] for r in ranks],
+            "max_abs_err": r0["max_abs_err"], "bits_equal": r0["bits_equal"],
+            "max_abs_err_vs_plain": r0["max_abs_err_vs_plain"],
+            "bit_exact_vs_plain": r0["bit_exact_vs_plain"],
+            "launches": launches, "outputs": r0["outputs"]}

@@ -35,6 +35,19 @@ sys.meta_path.insert(0, Refuse())
 """
 
 
+def jax_free_env(tmp_path, **extra):
+    """An environment whose interpreters, and every process they start,
+    refuse the reference package and JAX: ``tmp_path/refuse/
+    sitecustomize.py`` (:data:`_REFUSE`) first on the path, the repository
+    root after it."""
+    site = tmp_path / "refuse"
+    site.mkdir(exist_ok=True)
+    (site / "sitecustomize.py").write_text(_REFUSE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{site}{os.pathsep}{ROOT}", **extra)
+    return env
+
+
 def _five_codec_inputs(tmp_path):
     """FLAC, MP3, AAC, Ogg Vorbis and Layer II streams, built here (the
     repository's encoders import the reference package) and written to
@@ -139,8 +152,13 @@ def test_port_sources_import_no_jax():
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 60
-    for tool in ("bench.py", "soak.py"):
+    for tool in ("bench.py", "soak.py", "check.py", "play.py",
+                 "resample.py", "ui.py"):
         assert os.path.join(pkg, "tools", tool) in paths
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/step.py", "examples/getting_started.py",
+                "examples/basic_interleaved.py"):
+        assert os.path.join(pkg, *mod.split("/")) in paths
     for path in paths:
         for name in _imported_modules(path):
             assert name.split(".")[0] not in ("symphonia_tpu", "jax",
@@ -172,6 +190,13 @@ def test_port_sources_import_no_jax():
     lambda: _bench().bench_vorbis_device(),
     lambda: _soak().main(),
     lambda: _soak().main(1.0, 7, device="cuda"),
+    lambda: entry.dryrun_multichip(1),
+    lambda: entry.dryrun_multichip(1, backend="nccl"),
+    lambda: entry.dryrun_multichip(8, backend="gloo"),
+    lambda: entry.dryrun_multichip(4, device="cuda", backend="gloo",
+                                   size=dict(F=2, N=8, G=2, A=2, V=2, n1=8)),
+    # (The example reads its file before it decodes: any file will do.)
+    lambda: _basic_interleaved().main(__file__),
 ])
 def test_cuda_without_cuda_raises(make):
     if torch.cuda.is_available():
@@ -213,6 +238,12 @@ def _batch_serving():
     return batch_serving
 
 
+def _basic_interleaved():
+    from symphonia_tpu_torch.examples import basic_interleaved
+
+    return basic_interleaved
+
+
 def _bench():
     from symphonia_tpu_torch.tools import bench
 
@@ -236,10 +267,58 @@ def test_device_is_required():
                _batch_serving().main, _bench().main,
                _bench().bench_flac_device, _bench().bench_mp3_device,
                _bench().bench_aac_device, _bench().bench_vorbis_device,
-               _soak().main):
+               _soak().main, entry.dryrun_multichip,
+               _basic_interleaved().main):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     with pytest.raises(ValueError):
         port.FlacBatchDecoder(device="meta")
+
+
+@pytest.mark.parametrize("n,cards", [(2, 1), (4, 1), (8, 4), (2, 0)])
+def test_nccl_with_more_ranks_than_cards_raises(monkeypatch, n, cards):
+    # NCCL wants one card a rank: with fewer cards it raises before any
+    # build or process start; nothing falls back to gloo or to the CPU.
+    from symphonia_tpu_torch.parallel import step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    calls = []
+    monkeypatch.setattr(_build, "build", lambda: calls.append("build"))
+    monkeypatch.setattr(step, "_rank_main", lambda *a: calls.append(a))
+    with pytest.raises(RuntimeError, match="one card a rank"):
+        entry.dryrun_multichip(n, backend="nccl")
+    with pytest.raises(RuntimeError, match="one card a rank"):
+        step.spawn(n, _no_body, backend="nccl", device="cuda")
+    assert calls == []
+
+
+def _no_body(rank):
+    return rank.rank
+
+
+def test_dryrun_ranks_never_import_jax(tmp_path):
+    # The spawned ranks are fresh interpreters: a sitecustomize on their
+    # path refuses the reference package and JAX in each of them too.
+    code = textwrap.dedent("""
+        import sys
+        from symphonia_tpu_torch.entry import dryrun_multichip
+        if __name__ == "__main__":
+            res = dryrun_multichip(2, device="cpu", backend="gloo",
+                                   size=dict(F=3, N=32, G=5, A=3, V=3,
+                                             n1=64))
+            assert res["mesh"] == [1, 2] and res["bits_equal"]["flac"]
+            bad = [m for m in sys.modules
+                   if m.split(".")[0] in ("symphonia_tpu", "jax", "jaxlib")]
+            assert not bad, bad
+            print("ok")
+    """)
+    script = tmp_path / "run.py"
+    script.write_text(code)
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=120, env=jax_free_env(tmp_path),
+                          cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 @pytest.mark.parametrize("call", ["decode_bytes", "decode_many"])

@@ -31,7 +31,9 @@ COPIED = ([(f"symphonia_tpu/{r}", f"symphonia_tpu_torch/{r}") for r in _HOST]
               "symphonia_tpu_torch/ops/imdct_host.py")]
           + [(f"tests/{n}", f"symphonia_tpu_torch/testing/{n}")
              for n in ("flac_builder.py", "mp3_builder.py", "aac_builder.py",
-                       "vorbis_builder.py", "alac_builder.py")])
+                       "vorbis_builder.py", "alac_builder.py")]
+          + [(f"symphonia_tpu/tools/{n}", f"symphonia_tpu_torch/tools/{n}")
+             for n in ("check.py", "play.py", "resample.py", "ui.py")])
 
 # A line outside the import statements may differ only where it names a
 # package (``__import__``'s argument) or the data directory.
@@ -60,6 +62,43 @@ def _assert_verbatim(ref_src: str, port_src: str):
 @pytest.mark.parametrize("ref,port", COPIED, ids=[c[1] for c in COPIED])
 def test_copied_module_is_verbatim(ref, port):
     _assert_verbatim((ROOT / ref).read_text(), (ROOT / port).read_text())
+
+
+# Copies with edits, each listed (reference text, port text): the examples,
+# run from the port's package (``python -m``), whose ``sys.path`` line
+# reaches the repository root from one directory deeper, and the batch
+# example's device argument (the card unless the caller asks for the CPU).
+_SYS_PATH = ("sys.path.insert(0, os.path.dirname(os.path.dirname("
+             "os.path.abspath(__file__))))\n",
+             "sys.path.insert(0, os.path.dirname(os.path.dirname("
+             "os.path.dirname(\n    os.path.abspath(__file__)))))\n")
+EDITED = [
+    ("examples/getting_started.py",
+     "symphonia_tpu_torch/examples/getting_started.py",
+     (("Usage: python examples/getting_started.py <media-file>",
+       "Usage: python -m symphonia_tpu_torch.examples.getting_started "
+       "<media-file>"), _SYS_PATH)),
+    ("examples/basic_interleaved.py",
+     "symphonia_tpu_torch/examples/basic_interleaved.py",
+     (("through the batch (TPU) path", "through the batch (CUDA) path"),
+      ("Usage: python examples/basic_interleaved.py <media-file>",
+       "Usage: python -m symphonia_tpu_torch.examples.basic_interleaved "
+       "<media-file>"), _SYS_PATH,
+      ("def main(path: str) -> int:\n",
+       'def main(path: str, device="cuda") -> int:\n'),
+      ('    out = batch.decode_bytes(open(path, "rb").read())\n',
+       '    out = batch.decode_bytes(open(path, "rb").read(), '
+       'device=device)\n'))),
+]
+
+
+@pytest.mark.parametrize("ref,port,edits", EDITED, ids=[e[1] for e in EDITED])
+def test_copied_module_with_listed_edits_is_verbatim(ref, port, edits):
+    src = (ROOT / port).read_text()
+    for want, got in edits:
+        assert src.count(got) == 1, got
+        src = src.replace(got, want)
+    _assert_verbatim((ROOT / ref).read_text(), src)
 
 
 # Parts of modules copied: (reference module, port module, names).
@@ -97,6 +136,8 @@ PARTS = [
       "build_av_mp4", "build_fmp4_video")),
     ("test_metadata", "symphonia_tpu_torch.testing.metadata_builder",
      ("syncsafe", "build_id3v2", "text_frame")),
+    ("symphonia_tpu.parallel.mesh", "symphonia_tpu_torch.parallel.mesh",
+     ("pad_to_multiple",)),
 ]
 
 
