@@ -29,7 +29,11 @@ Phases (one line each; any failure raises and exits non-zero):
      numpy oracle, with the error relative to the peak, chained calls
      within 1e-6 of one call (bit-equality reported), beside cuBLAS on the
      reference's dense product, with the factored and the dense bound and
-     the kernel's registers, spills and blocks per SM; A2 bit for bit
+     the kernel's registers, spills and blocks per SM; A1 through a row
+     map (a random permutation of the lanes, n_rows at 3/4 of them and at
+     0, long with its prologue at [16384, 1024] and short at [8192, 128])
+     bit for bit against A1 on the same lanes gathered, every other output
+     row untouched, timed beside A1 on as many contiguous rows; A2 bit for bit
      against ``native.aac_dequant_host``, A3 against the reference's
      sequential ``window_ola_chain``; V1 at both ends of the Vorbis block
      sizes (64 and 8192); L1 for Layer I and II, chained over
@@ -85,10 +89,17 @@ Phases (one line each; any failure raises and exits non-zero):
   6. the entry step: ``symphonia_tpu_torch.entry.decode_step`` (the
      reference's combined four-codec step, K14) on the card at full width
      (8192 FLAC frames of 4096 samples, 4096 stereo MP3 granules, 16384 AAC
-     frames, 16384 Vorbis blocks of 2048) against ``decode_step_plain`` on
-     the card: FLAC, AAC and Vorbis bit for bit, MP3 within 1e-5, F1, F2,
-     M1, M2, A1, A3, V1 and V2 launched; then a small step with EIGHT_SHORT
-     handoff lanes, which takes A2;
+     frames, 16384 Vorbis blocks of 2048) under
+     ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises)
+     against ``decode_step_plain`` on the card: FLAC, AAC and Vorbis bit
+     for bit, MP3 within 1e-5, F1 and its helper, F2, M1, M2, A1, A2, A3,
+     V1 and V2 launched; ``entry.capture_step``'s CUDA graph (the four
+     codec stages as four branches) and the step captured on one stream,
+     each replay bit for bit against the eager step, the graph's launches
+     those of an eager step; the eager and both replays' times in turns,
+     each stage's, the kernels' summed device time (``torch.profiler``),
+     the bound and its share of the replay; then a small step with
+     EIGHT_SHORT handoff lanes, in which A2 dequantizes them;
   7. ``bench``: ``symphonia_tpu_torch.tools.bench.main()`` at the bench's
      stage sizes with fewer host passes: its eleven stages and the
      pipelined aggregate above 0, every kernel of its device stages
@@ -119,7 +130,12 @@ Phases (one line each; any failure raises and exits non-zero):
      shows at the reference's sizes), with each rank's copy of its
      lanes to the card and its step (CUDA events) and its gather time
      beside the card's name and power limit, F1 and its helper, F2, M1,
-     M2, A1, A3, V1 and V2 launched (summed over ranks).
+     M2, A1, A2, A3, V1 and V2 launched (summed over ranks);
+ 10. ``golden``: the reference's golden PCM anchor (``tests/golden_pcm.npz``)
+     on the card: its corpus, built by ``testing.golden_corpus``, decoded
+     by ``decode_many`` on the card (run after phase 3), integer entries
+     bit-exact and float entries within 1e-5, pygame's two real-media
+     files decoded where they exist and named as absent where not.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -233,14 +249,20 @@ KERNEL_INFO = {
     "rice_decode": ("cuda", "symphonia_tpu_torch/csrc/rice_device.cu",
                     "symphonia_tpu/ops/rice_device.py:40"),
 }
-# Kernels that decode_many does not run (K9 serves only dequant_select and
-# its tests; V2 is the entry step's lap; P1 and R1 have their own paths, as
-# in the reference): not required in phase 3.
+# Kernels that decode_many does not run (K9 serves dequant_select and the
+# entry step's short lanes; V2 is the entry step's lap; P1 and R1 have
+# their own paths, as in the reference): not required in phase 3.
 OFF_PATH = ("aac_dequant", "vorbis_lap", "pcm_unpack", "rice_decode")
-# The entry step's kernels (phase 6); A2 runs only for short handoff lanes.
+# The entry step's kernels (phase 6); A2 resolves the short lanes' handoff
+# on the card in every step (no host test decides whether it runs).
 STEP_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
-             "mp3_synth", "aac_imdct", "aac_ola", "vorbis_imdct",
-             "vorbis_lap")
+             "mp3_synth", "aac_imdct", "aac_dequant", "aac_ola",
+             "vorbis_imdct", "vorbis_lap")
+# Phase 10's path (decode_many on the golden corpus): every kernel of
+# decode_many but V1, whose entry (house_lo.ogg) may be absent.
+GOLDEN_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate",
+               "mp3_hybrid", "mp3_synth", "aac_imdct", "aac_ola",
+               "mpa_l12_synth")
 # Phase 6's full width: FLAC frames, samples, MP3 granules, AAC frames,
 # Vorbis blocks and block size.
 STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
@@ -1075,14 +1097,82 @@ def _synth_attributes() -> dict:
 
 
 def _tile_attributes() -> dict:
-    """A1 with and without its prologue and V1 (the IMDCT tile)."""
+    """A1 with and without its prologue, each on contiguous rows and
+    through a row map, and V1 (the IMDCT tile)."""
     from symphonia_tpu_torch.ops import _build
 
     lib = _build.lib()
     return _attributes((
         ("aac_imdct_prologue", lib.aac_imdct_attributes, (1,)),
         ("aac_imdct", lib.aac_imdct_attributes, (0,)),
+        ("aac_imdct_prologue_row_map", lib.aac_imdct_attributes, (3,)),
+        ("aac_imdct_row_map", lib.aac_imdct_attributes, (2,)),
         ("vorbis_imdct", lib.vorbis_imdct_attributes, ())))
+
+
+def _a1_row_map_cases(dense, rng, x, quant, xs) -> dict:
+    """A1 through a row map (the entry step's split of long and short
+    lanes): a random permutation of the lanes with ``n_rows`` at 3/4 of
+    them and at 0, into an output whose other rows must keep their bits;
+    the lanes it names bit for bit against A1 on the same lanes gathered.
+    Long: ``x`` [L, 1024] with the prologue's ``quant``; short: ``xs`` [S,
+    128] as S / 8 lanes of eight windows. The time beside A1's on as many
+    contiguous rows (the first 3/4 of them, no index)."""
+    import torch
+
+    from symphonia_tpu_torch.ops import aac_dense as ad
+
+    dev = x.device
+    xl = xs.reshape(-1, 1024)  # the short windows as lanes
+    cases = {"long_prologue": (x, dense.imdct_long, quant),
+             "short": (xl, dense.imdct_short, None)}
+    res = {}
+    for case, (xc, m, q) in cases.items():
+        lanes_n = xc.shape[0]
+        n = m.shape[1]
+        rows = torch.from_numpy(
+            rng.permutation(lanes_n).astype(np.int32)).to(dev)
+        part = 3 * lanes_n // 4
+        for count in (part, 0):
+            n_rows = torch.tensor(count, dtype=torch.int32, device=dev)
+            out = torch.empty((lanes_n, 2048), dtype=torch.float32,
+                              device=dev)
+            out.view(torch.int32).fill_(0x7FC01234)  # NaN bits no row gives
+            sentinel = out.clone()
+            ad.aac_imdct(xc, m, q, rows=rows, n_rows=n_rows, out=out)
+            lanes = rows[:count].long()
+            qg = None if q is None else (
+                tuple(t[lanes] for t in q[:3]) + tuple(q[3:]))
+            want = sentinel.clone()
+            if count:
+                want[lanes] = ad.aac_imdct(
+                    xc[lanes].reshape(-1, n), m, qg).reshape(count, 2048)
+            torch.cuda.synchronize()
+            if not _bits_equal(out, want):
+                raise AssertionError(
+                    f"aac_imdct {case} through a row map of {count} lanes: "
+                    "not bit-equal to A1 on the lanes gathered, or a row "
+                    "outside the map written")
+        qc = None if q is None else (
+            tuple(t[:part] for t in q[:3]) + tuple(q[3:]))
+        xcont = xc[:part].reshape(-1, n)
+        n_rows = torch.tensor(part, dtype=torch.int32, device=dev)
+        ms = [cuda_ms(lambda: ad.aac_imdct(xc, m, q, rows=rows,
+                                           n_rows=n_rows, out=out), 10),
+              cuda_ms(lambda: ad.aac_imdct(xcont, m, qc), 10)]
+        ms += [cuda_ms(lambda: ad.aac_imdct(xcont, m, qc), 10),
+               cuda_ms(lambda: ad.aac_imdct(xc, m, q, rows=rows,
+                                            n_rows=n_rows, out=out), 10)]
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        res[case] = {
+            "lanes": lanes_n, "mapped_lanes": part, "rows_of_n": list(
+                xcont.shape), "bits_equal_gathered": True,
+            "untouched_outside": True,
+            "ms": [ms[0], ms[3]], "contiguous_ms": [ms[1], ms[2]],
+            "ratio": (ms[0] + ms[3]) / (ms[1] + ms[2]),
+            "zero_rows_ms": cuda_ms(lambda: ad.aac_imdct(
+                xc, m, q, rows=rows, n_rows=zero, out=out), 10)}
+    return res
 
 
 def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
@@ -1173,7 +1263,8 @@ def phase_aac_kernels(L: int = 16384, S: int = 8192) -> dict:
         **dict(zip(IMDCT_CASE_FIELDS[:4], a1_ms["long_prologue"][:4])),
         **bound(*work_aac_imdct(L, 1024, True)),
         dense_bound_ms=a1_ms["long_prologue"][5],
-        ms_by_case_fields=IMDCT_CASE_FIELDS, ms_by_case=_by_case(a1_ms))
+        ms_by_case_fields=IMDCT_CASE_FIELDS, ms_by_case=_by_case(a1_ms),
+        row_map=_a1_row_map_cases(dense, rng, x, quant, xs))
 
     # A2: bit for bit with its twin and with the host twin of the device
     # dequantization (native.aac_dequant_host).
@@ -1531,9 +1622,18 @@ def phase_pcm_kernel(B: int = PCM_SIZE[0], N: int = PCM_SIZE[1]) -> dict:
     return out
 
 
+def build_golden_corpus():
+    """Phase 10's corpus: ``testing.golden_corpus.corpus()``."""
+    _paths()
+    from symphonia_tpu_torch.testing import golden_corpus
+
+    return golden_corpus.corpus()
+
+
 def build_inputs():
     """FLAC, MP3, AAC, Vorbis, Layer I/II and per-packet streams from the
-    fixed seed, built in worker processes (the slowest first)."""
+    fixed seed, and phase 10's golden corpus, built in worker processes
+    (the slowest first)."""
     _paths()
     from symphonia_tpu_torch.testing.vorbis_stream import build_vorbis
 
@@ -1551,14 +1651,16 @@ def build_inputs():
                     for rate, e0, e1, s in VORBIS_SPECS]
         aac_f = [pool.submit(build_aac, i) for i in range(len(AAC_SPECS))]
         mp3_f = [pool.submit(build_mp3, i) for i in range(len(MP3_SPECS))]
+        golden_f = pool.submit(build_golden_corpus)
         flacs = [f.result() for f in flac_f]
         l12s = [f.result() for f in l12_f]
         vorbis = [f.result() for f in vorbis_f]
         aacs = [f.result() for f in aac_f]
         mp3s = [f.result() for f in mp3_f]
         packets = [f.result() for f in packet_f]
+        golden = golden_f.result()
     return (flacs, mp3s, aacs, vorbis, l12s, packets,
-            time.perf_counter() - t0)
+            time.perf_counter() - t0, golden)
 
 
 def _spy(cls, name: str, seen: set, key):
@@ -1582,7 +1684,7 @@ def phase_slice(inputs) -> dict:
     from symphonia_tpu_torch.ops.mp3_dense import L12Dense
     from symphonia_tpu_torch.ops.vorbis_dense import VorbisDense
 
-    flacs, mp3s, aacs, vorbis, l12s, packets, build_s = inputs
+    flacs, mp3s, aacs, vorbis, l12s, packets, build_s = inputs[:7]
     # The batch: FLAC entries cycle over the distinct streams, the other
     # codecs' streams interleave, so input order is exercised across codecs.
     items = [("flac", i % len(flacs)) for i in range(N_FLAC_ENTRIES)]
@@ -1740,6 +1842,49 @@ def phase_slice(inputs) -> dict:
         "card": card_line(),
     }
     print("phase 3 slice decode_many:", json.dumps(info), flush=True)
+    return info
+
+
+def phase_golden(corpus=None) -> dict:
+    """Phase 10: the reference's golden anchor (``tests/golden_pcm.npz``,
+    the reference's own decoded PCM of one fixture per codec family) on
+    the card: the corpus built by ``testing.golden_corpus`` (byte-equal to
+    ``tests/test_golden_pcm.py``'s, the CPU tests check) decoded by
+    ``batch.decode_many`` on the card, each entry under the anchor's
+    protocol (integers bit-exact, floats within 1e-5). The real-media
+    entries are decoded where pygame's files exist and named as absent
+    where they do not. ``corpus`` is ``golden_corpus.corpus()``'s result
+    where :func:`build_inputs` built it beside phase 3's streams."""
+    import torch
+
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.testing import golden_corpus
+
+    entries, absent = corpus or golden_corpus.corpus()
+    names = list(entries)
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    outs = batch.decode_many([entries[n] for n in names])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    with np.load(os.path.join(ROOT, "tests", "golden_pcm.npz")) as g:
+        rows = [golden_corpus.compare(n, o.samples, o.sample_rate, g)
+                for n, o in zip(names, outs)]
+    info = {"entries": rows, "absent": absent, "wall_s": round(wall, 3),
+            "launches": launches, "card": card_line()}
+    print("phase 10 golden anchor:", json.dumps(
+        dict(info, launches={k: v for k, v in launches.items() if v})),
+        flush=True)
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"golden anchor: {bad} outside the protocol")
+    path = GOLDEN_PATH + (("vorbis_imdct",) if "vorbis_real" in entries
+                          else ())
+    missing = [k for k in path if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"golden anchor: {missing} not launched")
     return info
 
 
@@ -1998,11 +2143,50 @@ def _step_bound(host, size, imad_macs_per_s: float) -> dict:
                                for k, b in by_stage.items()}}
 
 
+def _kernel_device_ms(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the summed device time
+    of the CUDA kernels it ran and their number (the port's kernels and
+    PyTorch's own), or the profiler's error where it shows no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            count += e.count
+        wall = round(time.perf_counter() - t0, 2)
+        if not count:
+            return {"kernel_sum_ms": None, "kernels": 0,
+                    "profiler": "no device events", "profiler_s": wall}
+        return {"kernel_sum_ms": total / 1e3, "kernels": count,
+                "profiler_s": wall}
+    except Exception as e:  # the card machine's CUPTI may refuse
+        return {"kernel_sum_ms": None, "kernels": None,
+                "profiler": f"{type(e).__name__}: {e}"}
+
+
 def phase_entry_step(imad_macs_per_s: float) -> dict:
-    """The combined decode step (K14) at full width on the card against the
-    same step of the plain twins on the card, then a small step with
-    EIGHT_SHORT handoff lanes (A2's path). ``imad_macs_per_s`` is phase
-    2's measured integer multiply-add rate, for F1's bound."""
+    """The combined decode step (K14) at full width on the card: once
+    eagerly under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    anywhere in it raises), against the same step of the plain twins on
+    the card; then ``entry.capture_step``'s CUDA graph (four codec stages
+    as four branches), its replay bit for bit against the eager step, and
+    the step captured on one stream for comparison; their times, each
+    stage's, the kernels' summed device time (``torch.profiler``), the
+    bound and its share; then a small step with EIGHT_SHORT handoff lanes
+    (A2 dequantizes them). ``imad_macs_per_s`` is phase 2's measured
+    integer multiply-add rate, for F1's bound."""
     import torch
 
     from symphonia_tpu_torch import entry
@@ -2020,8 +2204,14 @@ def phase_entry_step(imad_macs_per_s: float) -> dict:
         fn = entry.decode_step_plain if plain else entry.decode_step
         return fn(*a, n_samples=n)
 
+    run(args, N)  # the constants, matrices and windows onto the card
+    torch.cuda.synchronize()
     _build.reset_launches()
-    got = run(args, N)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(args, N)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     want = run(args, N, plain=True)
@@ -2035,13 +2225,43 @@ def phase_entry_step(imad_macs_per_s: float) -> dict:
         if g.dtype == torch.float32 and not torch.isfinite(g).all():
             raise AssertionError(f"entry step {name}: not finite")
         errs[name] = float((g.double() - w.double()).abs().max())
-        exact[name] = (torch.equal(g, w) if g.dtype == torch.int32
-                       else _bits_equal(g, w))
+        exact[name] = entry._bits_equal(g, w)
         ok &= exact[name] if name != "mp3" else errs[name] <= 1e-5
     shapes = {n: list(g.shape) for n, g in zip(names, got)}
-    del got, want
-    step_ms = cuda_ms(lambda: run(args, N), 5)
+    del want
+
+    # The step as one CUDA graph: four branches (entry.capture_step), and
+    # for comparison the same step captured on one stream.
+    four = entry.capture_step(*args, n_samples=N)
+    replayed = four()
+    one = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(one):
+        one_out = run(args, N)
+    one.replay()
+    torch.cuda.synchronize()
+    replay_exact = {n: entry._bits_equal(g, r)
+                    for n, g, r in zip(names, got, replayed)}
+    one_exact = {n: entry._bits_equal(g, r)
+                 for n, g, r in zip(names, got, one_out)}
+    del got
+    # In turns: four branches, one, eager, eager, one, four.
+    order = ("four", "one", "eager", "eager", "one", "four")
+    fns = {"four": four, "one": one.replay, "eager": lambda: run(args, N)}
+    ms = {k: [] for k in fns}
+    for k in order:
+        ms[k].append(cuda_ms(fns[k], 20))
+    enqueue = enqueue_ms(lambda: run(args, N), 5)
     plain_ms = cuda_ms(lambda: run(args, N, plain=True), 1)
+    calls = entry._stage_calls(entry._stages(False), args, N)
+    stage_ms = {n: cuda_ms(c, 5) for n, c in zip(names, calls)}
+    prof = _kernel_device_ms(lambda: run(args, N))
+    bound = _step_bound(host, STEP_SIZE, imad_macs_per_s)
+    replay_ms = min(ms["four"] + ms["one"])
+    replay_launches = {k: v for k, v in four.launches.items() if v}
+    four.reset()
+    one.reset()
+    del four, one, one_out, replayed, fns
+    torch.cuda.empty_cache()  # the graphs' pools: the step's intermediates
 
     # A few lanes of each codec with two EIGHT_SHORT handoff lanes (deq ==
     # 0): A2 dequantizes them before the short IMDCTs.
@@ -2064,10 +2284,18 @@ def phase_entry_step(imad_macs_per_s: float) -> dict:
                   and max(handoff_errs[n] for n in names[1:]) <= 1e-5)
     info = {
         "size": STEP_SIZE, "seed": SEED, "input_build_s": round(build_s, 2),
-        "output_shapes": shapes, "step_ms": step_ms, "plain_step_ms": plain_ms,
-        **_step_bound(host, STEP_SIZE, imad_macs_per_s),
-        "launches": launches,
+        "output_shapes": shapes, "sync_debug_mode": "error",
+        "step_ms": min(ms["eager"]), "step_ms_runs": ms["eager"],
+        "enqueue_ms": enqueue, "replay_ms": replay_ms,
+        "replay_four_branches_ms": ms["four"],
+        "replay_one_branch_ms": ms["one"], "plain_step_ms": plain_ms,
+        "stage_ms": stage_ms, "stage_sum_ms": sum(stage_ms.values()),
+        **prof, **bound, "bound_share_of_replay": bound["bound_ms"]
+        / replay_ms, "launches": launches,
+        "launches_per_replay": replay_launches,
         "max_abs_err_vs_plain": errs, "bit_exact_vs_plain": exact,
+        "replay_bits_equal_eager": replay_exact,
+        "one_branch_bits_equal_eager": one_exact,
         "handoff_launches": handoff_launches,
         "handoff_max_abs_err_vs_plain": handoff_errs,
         "card": card_line(),
@@ -2079,6 +2307,13 @@ def phase_entry_step(imad_macs_per_s: float) -> dict:
     if not ok:
         raise AssertionError("entry step vs its plain twin: FLAC, AAC and "
                              "Vorbis must be bit-exact, MP3 within 1e-5")
+    if not (all(replay_exact.values()) and all(one_exact.values())):
+        raise AssertionError("the captured step's replay is not bit for bit "
+                             f"the eager step: {replay_exact}, one branch "
+                             f"{one_exact}")
+    if replay_launches != {k: v for k, v in launches.items() if v}:
+        raise AssertionError(f"the graph holds {replay_launches}, the "
+                             f"eager step launched {launches}")
     if handoff_launches["aac_dequant"] != 1 or not handoff_ok:
         raise AssertionError("entry step with short handoff lanes: A2 not "
                              "launched once, or the step outside the bars")
@@ -2432,22 +2667,32 @@ def main() -> int:
         return 1
     _paths()
     t_start = time.perf_counter()
-    env = phase_env()
-    kern = phase_kernels()
-    kern.update(phase_aac_kernels())
-    kern.update(phase_vorbis_l12_kernels())
-    kern.update(phase_pcm_kernel())
-    inputs = build_inputs()
-    sl = phase_slice(inputs)
-    pb = phase_pcm_batch(inputs)
+    wall = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wall[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    env = timed("1", phase_env)
+    kern = timed("2", phase_kernels)
+    kern.update(timed("2_aac", phase_aac_kernels))
+    kern.update(timed("2_vorbis_l12", phase_vorbis_l12_kernels))
+    kern.update(timed("2_pcm", phase_pcm_kernel))
+    inputs = timed("inputs", build_inputs)
+    sl = timed("3", phase_slice, inputs)
+    gd = timed("10", phase_golden, inputs[7])
+    pb = timed("4", phase_pcm_batch, inputs)
     del inputs
-    rb = phase_rice_bench()
+    rb = timed("5", phase_rice_bench)
     kern["rice_decode"] = rb["kernel"]
-    st = phase_entry_step(kern["flac_lpc"]["imad_macs_per_s"])
-    bn = phase_bench()
-    sk = phase_soak()
-    mc = phase_multichip()
-    paths = {"decode_many": sl["launches"], "pcm_batch": pb["launches"],
+    st = timed("6", phase_entry_step, kern["flac_lpc"]["imad_macs_per_s"])
+    bn = timed("7", phase_bench)
+    sk = timed("8", phase_soak)
+    mc = timed("9", phase_multichip)
+    paths = {"decode_many": sl["launches"], "golden": gd["launches"],
+             "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
              "bench": bn["launches"], "soak": sk["launches"],
@@ -2478,8 +2723,8 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s "
+          f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

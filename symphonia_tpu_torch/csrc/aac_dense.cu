@@ -37,6 +37,23 @@
 // (dequant_one); it reads the table through the read-only cache. Bound by
 // memory: 2 B of qbuf and 4 B of coeffs in, 4 B out per coefficient.
 //
+// The row map (A1 and A2). The reference's step (__graft_entry__.py:62,
+// K14) computes both IMDCTs over every lane and selects per lane; the
+// port computes each lane's own. Its entry step sorts the lanes on the
+// device, long ones first, and hands A1 that index with the count of long
+// lanes and, reversed, with the count of short ones, both device scalars:
+// no count reaches the host, nothing is gathered into a new buffer and
+// nothing scattered back. A1's block keeps its 128 tile rows' operand rows
+// in shared memory (simt_gemm.cuh's fill_row_map, MappedSlabCopy,
+// store_mapped); a lane is one row at n = 1024 and eight at n = 128 (its
+// short windows in the [8A, 128] view of the coefficients and the [8A,
+// 256] view of the output). A block past the count returns before its
+// first copy. A2 reads its rows through the same index and writes each of
+// them, dequantized where deq == 0 and copied where not: the short IMDCT
+// then reads every short lane from A2's output, one source, and the
+// caller's coefficients stay as they were. That copy moves what the
+// gather it replaces moved.
+//
 // A3 aac_ola replaces _ola_jax (:209, K8):
 //   out[l, i] = head(l, i) + (l == 0 || first[l] ? 0 : delay(l - 1, i))
 // over pcm [L, 2048] (short frames hold their 8 x 256 windows flattened).
@@ -67,6 +84,7 @@
 // reference's order.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "simt_gemm.cuh"
@@ -104,6 +122,12 @@ constexpr int kSmemPlain = simt_gemm::smem_bytes(kStagesPlain);
 // The ring, then pow43, sfb_map and four 8-byte quant slots a thread.
 constexpr int kSmemDeq = simt_gemm::smem_bytes(kStagesDeq) + kPow43 * 4 +
                          kLong * 4 + 4 * kThreads * 8;
+// Through a row map a block also keeps its 128 tile rows' operand rows, at
+// the end of its shared memory.
+constexpr int kMapBytes = kBM * 4;
+template <bool kDeq, bool kMapped>
+constexpr int kSmem = (kDeq ? kSmemDeq : kSmemPlain) + (kMapped ? kMapBytes
+                                                                : 0);
 
 // The prologue's A slab: a handoff row (deq == 0) is dequantized from its
 // quants, any other row is copied from X. start() copies the X rows, and
@@ -112,25 +136,39 @@ constexpr int kSmemDeq = simt_gemm::smem_bytes(kStagesDeq) + kPow43 * 4 +
 // waits for them, gathers their scales and dequantizes them into the
 // stage. Nothing of the prologue stays in registers across the fmaf: at
 // the 128 registers that two blocks an SM leave a thread, even the eight
-// of four prefetched quants made ptxas spill inside the product.
+// of four prefetched quants made ptxas spill inside the product. Copy is
+// SlabCopy (slot s is row r0 + 32 s) or MappedSlabCopy (slot s's row is
+// the block's map entry, read from shared memory where it is used).
+template <class Copy>
 struct DequantA {
-  simt_gemm::SlabCopy x;
+  static constexpr bool kMapped =
+      !std::is_same<Copy, simt_gemm::SlabCopy>::value;
+  Copy x;
   const int16_t* __restrict__ qbuf;
   const float* __restrict__ scales;
   const int32_t* sfb;              // shared memory
   const float* pow43;              // shared memory
   short4* quants;                  // shared memory: slot s at [s * kThreads]
-  int r0;                          // slot 0's row; slot s is row r0 + 32 s
+  int r0;                          // slot 0's row (SlabCopy)
   unsigned handoff;                // bit s: slot s's row hands off
+
+  __device__ __forceinline__ int row(int s) const {
+    if constexpr (kMapped) return x.row(s);
+    else return r0 + 32 * s;
+  }
+
+  __device__ __forceinline__ bool valid(int s) const {
+    if constexpr (kMapped) return x.row(s) >= 0;
+    else return s < x.slots;
+  }
 
   __device__ __forceinline__ void start(float* tile, int k0) {
     const int k = k0 + 4 * (threadIdx.x & 7);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       if (handoff >> s & 1u)
-        simt_gemm::cp_async8(
-            quants + s * kThreads,
-            qbuf + static_cast<int64_t>(r0 + 32 * s) * kLong + k);
+        simt_gemm::cp_async8(quants + s * kThreads,
+                             qbuf + static_cast<int64_t>(row(s)) * kLong + k);
       else
         x.start_one(tile, k0, s);
     }
@@ -144,7 +182,7 @@ struct DequantA {
     for (int s = 0; s < 4; ++s) {
       if (!(handoff >> s & 1u)) continue;
       const short4 q = quants[s * kThreads];
-      const float* r = scales + static_cast<int64_t>(r0 + 32 * s) * kSfbs;
+      const float* r = scales + static_cast<int64_t>(row(s)) * kSfbs;
       *reinterpret_cast<float4*>(x.slot_dst(tile, s)) = make_float4(
           dequant_one(q.x, r[b0], pow43), dequant_one(q.y, r[b1], pow43),
           dequant_one(q.z, r[b2], pow43), dequant_one(q.w, r[b3], pow43));
@@ -152,25 +190,19 @@ struct DequantA {
   }
 };
 
-// Two blocks an SM: ptxas keeps a thread within 128 registers.
-template <bool kDeq>
-__global__ void __launch_bounds__(kThreads, 2)
-aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
-                 const int16_t* __restrict__ qbuf,
-                 const float* __restrict__ scales,
-                 const int32_t* __restrict__ deq,
-                 const int32_t* __restrict__ sfb_map,
-                 const float* __restrict__ pow43_g, float* __restrict__ Y,
-                 int L, int n) {
-  extern __shared__ __align__(16) float smem[];
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
-  const int col0 = blockIdx.y * kBN;
-  const simt_gemm::Thread th;
-  // B: rows col0.. of the half matrix M[n/2 : 3n/2].
-  const simt_gemm::SlabCopy m(M + static_cast<int64_t>(n / 2) * n, n, col0,
-                              n - col0);
-  const simt_gemm::SlabCopy x(X, n, row0, L - row0);
-  float acc[8][8] = {};
+// acc += A . M_half^T over K = n for this block's A rows, read by x (the
+// contiguous SlabCopy or the row map's MappedSlabCopy); with kDeq the
+// handoff rows are dequantized on the way in. r0 is slot 0's row for a
+// SlabCopy. The caller has filled the map, if any; the first barrier here
+// publishes it with the tables.
+template <bool kDeq, class Copy>
+__device__ __forceinline__ void imdct_product(
+    const Copy& x, int r0, const simt_gemm::SlabCopy& m,
+    const int16_t* __restrict__ qbuf, const float* __restrict__ scales,
+    const int32_t* __restrict__ deq, const int32_t* __restrict__ sfb_map,
+    const float* __restrict__ pow43_g, int n, float* smem,
+    const simt_gemm::Thread& th, float (&acc)[8][8]) {
+  constexpr bool kMapped = DequantA<Copy>::kMapped;
   if constexpr (kDeq) {
     float* pow43 = smem + simt_gemm::smem_bytes(kStagesDeq) / 4;
     int32_t* sfb = reinterpret_cast<int32_t*>(pow43 + kPow43);
@@ -178,20 +210,90 @@ aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
     for (int i = threadIdx.x; i < kPow43; i += kThreads) pow43[i] = pow43_g[i];
     for (int i = threadIdx.x; i < kLong; i += kThreads) sfb[i] = sfb_map[i];
     __syncthreads();  // the first slabs dequantize before the K loop
-    // This thread's copy slots s: rows r0 + 32 s (L < 2^31 rows).
-    const int r0 = static_cast<int>(row0) + (threadIdx.x >> 3);
-    unsigned handoff = 0;
+    DequantA<Copy> load{x, qbuf, scales, sfb, pow43, quants + threadIdx.x,
+                        r0, 0u};
 #pragma unroll
     for (int s = 0; s < 4; ++s)
-      if (s < x.slots && deq[r0 + 32 * s] == 0) handoff |= 1u << s;
-    DequantA load{x, qbuf, scales, sfb, pow43, quants + threadIdx.x, r0,
-                  handoff};
+      if (load.valid(s) && deq[load.row(s)] == 0) load.handoff |= 1u << s;
     simt_gemm::tile_product<kStagesDeq>(load, m, n, smem, th, acc);
+  } else if constexpr (kMapped) {
+    __syncthreads();  // the map
+    simt_gemm::MappedRowsA load{x};
+    simt_gemm::tile_product<kStagesPlain>(load, m, n, smem, th, acc);
   } else {
     simt_gemm::RowsA load{x};
     simt_gemm::tile_product<kStagesPlain>(load, m, n, smem, th, acc);
   }
-  simt_gemm::store_mirrored(Y, acc, th, row0, L, col0, n);
+}
+
+// Two blocks an SM: ptxas keeps a thread within 128 registers.
+// kMapped: the block's 128 tile rows are the lanes rows[0 .. *n_rows),
+// group operand rows a lane (simt_gemm::fill_row_map); a block at or past
+// the end returns before its first copy, so the count stays on the device
+// and the grid is sized by the index's length. Otherwise rows row0.. of X
+// and Y, before L.
+template <bool kDeq, bool kMapped>
+__global__ void __launch_bounds__(kThreads, 2)
+aac_imdct_kernel(const float* __restrict__ X, const float* __restrict__ M,
+                 const int16_t* __restrict__ qbuf,
+                 const float* __restrict__ scales,
+                 const int32_t* __restrict__ deq,
+                 const int32_t* __restrict__ sfb_map,
+                 const float* __restrict__ pow43_g, float* __restrict__ Y,
+                 int L, int n, const int32_t* __restrict__ rows,
+                 const int32_t* __restrict__ n_rows, int group) {
+  extern __shared__ __align__(16) float smem[];
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kBM;
+  const int col0 = blockIdx.y * kBN;
+  const simt_gemm::Thread th;
+  // B: rows col0.. of the half matrix M[n/2 : 3n/2].
+  const simt_gemm::SlabCopy m(M + static_cast<int64_t>(n / 2) * n, n, col0,
+                              n - col0);
+  float acc[8][8] = {};
+  if constexpr (kMapped) {
+    const int end = group * __ldg(n_rows);
+    if (row0 >= end) return;
+    int* map = reinterpret_cast<int*>(
+        smem + (kSmem<kDeq, true> - kMapBytes) / 4);
+    simt_gemm::fill_row_map(map, static_cast<int>(row0), end, rows, group);
+    const simt_gemm::MappedSlabCopy x(X, n, map);
+    imdct_product<kDeq>(x, 0, m, qbuf, scales, deq, sfb_map, pow43_g, n,
+                        smem, th, acc);
+    simt_gemm::store_mapped(Y, acc, th, map, col0, n);
+  } else {
+    const simt_gemm::SlabCopy x(X, n, row0, L - row0);
+    // This thread's copy slots s: rows r0 + 32 s (L < 2^31 rows).
+    imdct_product<kDeq>(x, static_cast<int>(row0) + (threadIdx.x >> 3), m,
+                        qbuf, scales, deq, sfb_map, pow43_g, n, smem, th,
+                        acc);
+    simt_gemm::store_mirrored(Y, acc, th, row0, L, col0, n);
+  }
+}
+
+template <bool kDeq, bool kMapped>
+cudaError_t launch_imdct(dim3 grid, cudaStream_t st, const void* X,
+                         const void* M, const void* qbuf, const void* scales,
+                         const void* deq, const void* sfb_map,
+                         const void* pow43, void* Y, int L, int n,
+                         const void* rows, const void* n_rows, int group) {
+  constexpr int smem = kSmem<kDeq, kMapped>;
+  const cudaError_t e =
+      simt_gemm::opt_in(aac_imdct_kernel<kDeq, kMapped>, smem);
+  if (e != cudaSuccess) return e;
+  aac_imdct_kernel<kDeq, kMapped><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(X), static_cast<const float*>(M),
+      static_cast<const int16_t*>(qbuf), static_cast<const float*>(scales),
+      static_cast<const int32_t*>(deq), static_cast<const int32_t*>(sfb_map),
+      static_cast<const float*>(pow43), static_cast<float*>(Y), L, n,
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(n_rows),
+      group);
+  return cudaGetLastError();
+}
+
+template <bool kDeq, bool kMapped>
+int imdct_attributes(int* out) {
+  return simt_gemm::attributes(aac_imdct_kernel<kDeq, kMapped>,
+                               kSmem<kDeq, kMapped>, out);
 }
 
 // ----- A2 -------------------------------------------------------------
@@ -202,17 +304,26 @@ __global__ void aac_dequant_kernel(const float* __restrict__ coeffs,
                                    const int32_t* __restrict__ deq,
                                    const int32_t* __restrict__ sfb_map,
                                    const float* __restrict__ pow43,
-                                   float* __restrict__ out, int64_t total) {
+                                   float* __restrict__ out, int64_t total,
+                                   const int32_t* __restrict__ rows,
+                                   const int32_t* __restrict__ n_rows) {
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const int64_t r = idx / kLong;
+  int64_t r = idx / kLong;
   const int k = static_cast<int>(idx - r * kLong);
-  out[idx] = deq[r] == 0
-                 ? dequant_one(qbuf[idx], __ldg(scales + r * kSfbs +
-                                                __ldg(sfb_map + k)),
-                               pow43)
-                 : coeffs[idx];
+  // Through the index: entry r names the row; entries at or past *n_rows
+  // do nothing.
+  if (rows != nullptr) {
+    if (r >= __ldg(n_rows)) return;
+    r = __ldg(rows + r);
+  }
+  const int64_t i = r * kLong + k;
+  out[i] = deq[r] == 0
+               ? dequant_one(qbuf[i], __ldg(scales + r * kSfbs +
+                                            __ldg(sfb_map + k)),
+                             pow43)
+               : coeffs[i];
 }
 
 // ----- A3 -------------------------------------------------------------
@@ -308,59 +419,67 @@ int launch_error() { return static_cast<int>(cudaGetLastError()); }
 // Y [L, 2n] = X [L, n] . M^T with M the full [2n, n] matrix (A1 reads its
 // rows n/2 .. 3n/2 - 1); qbuf == nullptr turns the dequant prologue off
 // (then scales, deq, sfb_map and pow43 are unused). n % 32 == 0, and
-// n == 1024 with the prologue.
+// n == 1024 with the prologue. rows == nullptr: every row of X and Y.
+// Otherwise only the rows of the lanes rows[0 .. *n_rows) (rows int32 [R],
+// n_rows one int32, both on the device, *n_rows <= R): lane l is rows
+// group * l .. group * l + group - 1 of X and of Y, the grid covers R
+// lanes, and no other row of Y is written; group == 1 with the prologue.
 extern "C" int aac_imdct_launch(const void* X, const void* M,
                                 const void* qbuf, const void* scales,
                                 const void* deq, const void* sfb_map,
                                 const void* pow43, void* Y, int L, int n,
-                                void* stream) {
-  if (L <= 0) return launch_error();
-  if (n <= 0 || n % kBK != 0 || (qbuf != nullptr && n != kLong))
+                                const void* rows, const void* n_rows, int R,
+                                int group, void* stream) {
+  const bool mapped = rows != nullptr;
+  const int64_t tiles = mapped ? static_cast<int64_t>(R) * group : L;
+  if (tiles <= 0) return launch_error();
+  if (n <= 0 || n % kBK != 0 || (qbuf != nullptr && n != kLong) ||
+      mapped != (n_rows != nullptr) || group < 1 ||
+      (qbuf != nullptr && group != 1) || tiles > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((L + kBM - 1) / kBM),
+  const dim3 grid(static_cast<unsigned>((tiles + kBM - 1) / kBM),
                   static_cast<unsigned>((n + kBN - 1) / kBN));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qbuf != nullptr) {
-    const cudaError_t e = simt_gemm::opt_in(aac_imdct_kernel<true>, kSmemDeq);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    aac_imdct_kernel<true><<<grid, kThreads, kSmemDeq, st>>>(
-        static_cast<const float*>(X), static_cast<const float*>(M),
-        static_cast<const int16_t*>(qbuf), static_cast<const float*>(scales),
-        static_cast<const int32_t*>(deq),
-        static_cast<const int32_t*>(sfb_map),
-        static_cast<const float*>(pow43), static_cast<float*>(Y), L, n);
-  } else {
-    const cudaError_t e =
-        simt_gemm::opt_in(aac_imdct_kernel<false>, kSmemPlain);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    aac_imdct_kernel<false><<<grid, kThreads, kSmemPlain, st>>>(
-        static_cast<const float*>(X), static_cast<const float*>(M), nullptr,
-        nullptr, nullptr, nullptr, nullptr, static_cast<float*>(Y), L, n);
+  const auto f = qbuf != nullptr ? (mapped ? &launch_imdct<true, true>
+                                           : &launch_imdct<true, false>)
+                                 : (mapped ? &launch_imdct<false, true>
+                                           : &launch_imdct<false, false>);
+  return static_cast<int>(f(grid, st, X, M, qbuf, scales, deq, sfb_map,
+                            pow43, Y, L, n, rows, n_rows, group));
+}
+
+// A1's registers, local bytes and blocks per SM (simt_gemm::attributes):
+// out[3]. variant bit 0: the dequant prologue; bit 1: the row map.
+extern "C" int aac_imdct_attributes(int variant, int* out) {
+  switch (variant & 3) {
+    case 0: return imdct_attributes<false, false>(out);
+    case 1: return imdct_attributes<true, false>(out);
+    case 2: return imdct_attributes<false, true>(out);
+    default: return imdct_attributes<true, true>(out);
   }
-  return launch_error();
 }
 
-// A1's registers, local bytes and blocks per SM (simt_gemm::attributes),
-// with (prologue != 0) or without its dequant prologue: out[3].
-extern "C" int aac_imdct_attributes(int prologue, int* out) {
-  return prologue ? simt_gemm::attributes(aac_imdct_kernel<true>, kSmemDeq,
-                                          out)
-                  : simt_gemm::attributes(aac_imdct_kernel<false>,
-                                          kSmemPlain, out);
-}
-
+// out [L, 1024]: the dequantized quants where deq == 0, coeffs elsewhere.
+// rows == nullptr: every row. Otherwise only the rows rows[0 .. *n_rows)
+// (rows int32 [R], n_rows one int32, on the device; the grid covers R
+// rows), and no other row of out is written.
 extern "C" int aac_dequant_launch(const void* coeffs, const void* qbuf,
                                   const void* scales, const void* deq,
                                   const void* sfb_map, const void* pow43,
-                                  void* out, int L, void* stream) {
-  const int64_t total = static_cast<int64_t>(L) * kLong;
+                                  void* out, int L, const void* rows,
+                                  const void* n_rows, int R, void* stream) {
+  const bool mapped = rows != nullptr;
+  if (mapped != (n_rows != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = static_cast<int64_t>(mapped ? R : L) * kLong;
   if (total <= 0) return launch_error();
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
   aac_dequant_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coeffs), static_cast<const int16_t*>(qbuf),
       static_cast<const float*>(scales), static_cast<const int32_t*>(deq),
       static_cast<const int32_t*>(sfb_map), static_cast<const float*>(pow43),
-      static_cast<float*>(out), total);
+      static_cast<float*>(out), total, static_cast<const int32_t*>(rows),
+      static_cast<const int32_t*>(n_rows));
   return launch_error();
 }
 

@@ -58,7 +58,11 @@
 // stored, so K may be below the 128-wide tile (Vorbis n = 64: K = 32). A,
 // M and Y must be 16-byte aligned. How A's slab gets into shared memory is
 // the caller's (the ALoad policy: A1 dequantizes the entropy stage's
-// handoff rows there).
+// handoff rows there). A's rows are contiguous (SlabCopy, RowsA:
+// V1) or named by a row map that the block keeps in shared memory
+// (MappedSlabCopy, MappedRowsA, store_mapped: A1, whose caller picks the
+// long or short lanes of a batch by an index on the device, with no
+// gather or scatter copy and no count on the host).
 
 #pragma once
 
@@ -155,6 +159,71 @@ struct RowsA {
   }
   __device__ __forceinline__ void finish(float* /*tile*/, int /*k0*/) {}
 };
+
+// The row-map policy beside SlabCopy: the same four copies of a thread,
+// but tile row t is operand row map[t], from the block's 128-entry map in
+// shared memory (fill_row_map); -1 is past the end and zero-filled. A slot
+// reads its row number from the map at each copy, so the policy keeps no
+// more registers than SlabCopy across the product (a pointer, the map's
+// address, K and the tile offset).
+struct MappedSlabCopy {
+  const float* src;  // row 0 of the operand, at this thread's k-quad
+  const int* map;    // shared: slot 0's entry; slot s's at map[32 s]
+  int K;
+  int dst;           // slot 0's float offset in the tile
+
+  __device__ __forceinline__ MappedSlabCopy(const float* op, int K_,
+                                            const int* block_map) {
+    const int tid = threadIdx.x;
+    src = op + (tid & 7) * 4;
+    map = block_map + (tid >> 3);
+    K = K_;
+    dst = quad_offset(tid >> 3, tid & 7);
+  }
+
+  // Slot s's operand row, or -1.
+  __device__ __forceinline__ int row(int s) const { return map[32 * s]; }
+
+  __device__ __forceinline__ float* slot_dst(float* tile, int s) const {
+    return tile + dst + 32 * s * kBK;
+  }
+
+  __device__ __forceinline__ void start_one(float* tile, int k0,
+                                            int s) const {
+    const int r = row(s);
+    cp_async16(slot_dst(tile, s),
+               r >= 0 ? src + static_cast<int64_t>(r) * K + k0 : src, r >= 0);
+  }
+
+  __device__ __forceinline__ void start(float* tile, int k0) const {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) start_one(tile, k0, s);
+  }
+};
+
+// A read through the block's row map: all of it by cp.async.
+struct MappedRowsA {
+  MappedSlabCopy copy;
+  __device__ __forceinline__ void start(float* tile, int k0) {
+    copy.start(tile, k0);
+  }
+  __device__ __forceinline__ void finish(float* /*tile*/, int /*k0*/) {}
+};
+
+// The block's row map (threads 0..127 write one entry each; the caller
+// syncs before the first copy): tile row t of the block at tile row row0,
+// g = row0 + t, names operand row group * rows[g / group] + g % group while
+// g < end, else -1. A map entry of `rows` names a whole lane of `group`
+// consecutive operand rows (AAC's eight short windows of a lane: group 8).
+// Operand rows < 2^31.
+__device__ __forceinline__ void fill_row_map(int* map, int row0, int end,
+                                             const int* __restrict__ rows,
+                                             int group) {
+  const int t = threadIdx.x;
+  if (t >= kBM) return;
+  const int g = row0 + t;
+  map[t] = g < end ? group * __ldg(rows + g / group) + g % group : -1;
+}
 
 // This thread's place in the 16 x 16 thread grid of the block tile.
 struct Thread {
@@ -254,6 +323,39 @@ __device__ __forceinline__ void store_mirrored(float* __restrict__ Y,
     const int64_t r = row0 + Thread::offset(th.ty, i);
     if (r >= L) continue;
     float* y = Y + r * 2 * K;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int c = col0 + Thread::offset(th.tx, 4 * g);
+      if (c >= K) continue;
+      const float4 z = make_float4(acc[i][4 * g], acc[i][4 * g + 1],
+                                   acc[i][4 * g + 2], acc[i][4 * g + 3]);
+      *reinterpret_cast<float4*>(y + h + c) = z;
+      if (c < h) {
+        *reinterpret_cast<float4*>(y + h - 4 - c) = make_float4(
+            __fsub_rn(0.f, z.w), __fsub_rn(0.f, z.z), __fsub_rn(0.f, z.y),
+            __fsub_rn(0.f, z.x));
+      } else {
+        *reinterpret_cast<float4*>(y + 2 * K + h - 4 - c) =
+            make_float4(z.w, z.z, z.y, z.x);
+      }
+    }
+  }
+}
+
+// store_mirrored through the block's row map in shared memory (tile row t
+// is output row map[t], none where it is negative). A loop of its own: with
+// both stores one template over a row function, V1 took 2.6% longer on the
+// H100 (tools/time_trees.py, parent and change in one call).
+__device__ __forceinline__ void store_mapped(float* __restrict__ Y,
+                                             const float (&acc)[8][8],
+                                             const Thread& th, const int* map,
+                                             int col0, int K) {
+  const int h = K / 2;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = map[Thread::offset(th.ty, i)];
+    if (r < 0) continue;
+    float* y = Y + static_cast<int64_t>(r) * 2 * K;
 #pragma unroll
     for (int g = 0; g < 2; ++g) {
       const int c = col0 + Thread::offset(th.tx, 4 * g);

@@ -11,14 +11,19 @@ lane batch, composed of the port's kernels:
   synthesis: matrixing, then the 16-tap windowed FIR) with zero carried
   state, all ``G`` granules one stream;
 * AAC: A1 ``aac_imdct`` with its dequant prologue over the lanes whose
-  window sequence is not EIGHT_SHORT, A1 without it over the ``[8S, 128]``
-  windows of the short lanes (A2 ``aac_dequant`` first where a short lane
-  hands off, ``deq == 0``), then A3 ``aac_ola`` over the whole batch as one
-  sequence;
+  window sequence is not EIGHT_SHORT, A2 ``aac_dequant`` over the short
+  lanes (those that hand off, ``deq == 0``, dequantized), A1 without its
+  prologue over their eight windows of 128, each reading and writing its
+  lanes through one index sorted on the card, then A3 ``aac_ola`` over the
+  whole batch as one sequence;
 * Vorbis: V1 ``vorbis_imdct`` at block size ``n1``, then V2 ``vorbis_lap``.
 
-:func:`decode_step_plain` is the same step of the plain twins (tests and
-``chip_smoke.py`` hold the kernels against it). :func:`example_batch` is
+The reference step is one XLA program with no host round trip; so is this
+one on the card: no stage waits for the card or copies from the host, and
+:func:`capture_step` replays the whole step as one CUDA graph, its four
+codec stages as four branches. :func:`decode_step_plain` is the same step
+of the plain twins (tests and ``chip_smoke.py`` hold the kernels against
+it). :func:`example_batch` is
 the reference's ``_example_batch`` (``:126``), equal array by array, and
 :func:`entry` gives ``(fn, args)`` as the reference's ``entry()`` does,
 with ``args`` as tensors on the card unless the caller asks for the CPU.
@@ -151,30 +156,35 @@ def mp3_step(k: SimpleNamespace, spectra, bt, mixed):
 
 def aac_step(k: SimpleNamespace, coeffs, qbuf, scales, deq, seqs, shapes,
              prev_shapes, sfb):
-    """AAC: dequantize the handoff lanes, one IMDCT per window class, then
-    the window/overlap-add over the batch as one sequence (lane 0 starts
-    it)."""
-    dev = coeffs.device
-    aac = _constants(dev).aac
+    """AAC: one IMDCT per window class, each over its own lanes, then the
+    window/overlap-add over the batch as one sequence (lane 0 starts it).
+
+    The lanes are split on the device, with no count on the host and no
+    copy: ``rows`` is a stable partition of the lanes, long ones first, and
+    reversed it starts with the short ones. A1 with its dequant prologue
+    reads and writes the long lanes through it (``n_long`` of them), A2
+    resolves the short lanes' handoff through it reversed (``n_short``),
+    and A1 reads those and writes their windows into the same ``aac_time``.
+    Both counts are device scalars, so the stage never waits for the card
+    and can be captured in a CUDA graph."""
+    aac = _constants(coeffs.device).aac
     A = coeffs.shape[0]
     is_short = seqs == EIGHT_SHORT
-    aac_time = torch.empty((A, 2048), dtype=torch.float32, device=dev)
-    for rows, short in ((torch.nonzero(~is_short).flatten(), False),
-                        (torch.nonzero(is_short).flatten(), True)):
-        if not rows.numel():
-            continue
-        x = coeffs.index_select(0, rows)
-        quant = tuple(t.index_select(0, rows)
-                      for t in (qbuf, scales, deq)) + (sfb, aac.pow43)
-        if not short:
-            y = k.imdct(x, aac.imdct_long, quant)
-        else:
-            if bool((quant[2] == 0).any()):
-                x = k.dequant(x, *quant)
-            y = k.imdct(x.reshape(-1, 128), aac.imdct_short)
-        aac_time.index_copy_(0, rows, y.reshape(-1, 2048))
-    first = torch.zeros(A, dtype=torch.bool, device=dev)
-    first[0] = True
+    rows = torch.argsort(is_short.to(torch.int8), stable=True).to(torch.int32)
+    short_first = rows.flip(0)
+    n_short = is_short.sum(dtype=torch.int32)
+    n_long = A - n_short
+    quant = (qbuf, scales, deq, sfb, aac.pow43)
+    aac_time = torch.empty((A, 2048), dtype=torch.float32,
+                           device=coeffs.device)
+    k.imdct(coeffs, aac.imdct_long, quant, rows=rows, n_rows=n_long,
+            out=aac_time)
+    x = k.dequant(coeffs, *quant, rows=short_first, n_rows=n_short)
+    k.imdct(x, aac.imdct_short, rows=short_first, n_rows=n_short,
+            out=aac_time)
+    # Lane 0 starts the sequence (made on the card: setting one element from
+    # a Python value would copy it from the host and wait).
+    first = torch.arange(A, device=coeffs.device) == 0
     return k.ola(aac_time, seqs, shapes, prev_shapes, first, *aac.ola_tables)
 
 
@@ -186,16 +196,14 @@ def vorbis_step(k: SimpleNamespace, spec):
     return k.lap(k.vorbis_imdct(spec, c.vorbis.matrix(n1)), c.window(n1))
 
 
-def _step(k: SimpleNamespace, flac_res, flac_coefs, flac_order, flac_shift,
-          flac_wasted, flac_assign, mp3_spectra, mp3_bt, mp3_mixed,
-          aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs, aac_shapes,
-          aac_prev_shapes, aac_sfb, vorb_spec, n_samples: int):
-    return (flac_step(k, flac_res, flac_coefs, flac_order, flac_shift,
-                      flac_wasted, flac_assign, n_samples),
-            mp3_step(k, mp3_spectra, mp3_bt, mp3_mixed),
-            aac_step(k, aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs,
-                     aac_shapes, aac_prev_shapes, aac_sfb),
-            vorbis_step(k, vorb_spec))
+def _stage_calls(k: SimpleNamespace, args, n_samples: int):
+    """The step's four codec stages on ``args`` (the reference step's
+    argument order), each a call of no arguments: they share no data, so
+    they may run in any order or at once."""
+    return (partial(flac_step, k, *args[0:6], n_samples),
+            partial(mp3_step, k, *args[6:9]),
+            partial(aac_step, k, *args[9:17]),
+            partial(vorbis_step, k, args[17]))
 
 
 def decode_step(*args, n_samples: int) -> Tuple[torch.Tensor, ...]:
@@ -205,13 +213,74 @@ def decode_step(*args, n_samples: int) -> Tuple[torch.Tensor, ...]:
     aac_coeffs, aac_qbuf, aac_scales, aac_deq, aac_seqs, aac_shapes,
     aac_prev_shapes, aac_sfb, vorb_spec)`` -> ``(flac_pcm [F, 2, N],
     mp3_pcm [G, 2, 576], aac_pcm [A, 1024], vorb_pcm [V, n1/2])``. On CUDA
-    tensors each stage launches its kernel or raises."""
-    return _step(_stages(False), *args, n_samples=n_samples)
+    tensors each stage launches its kernel or raises, and nothing waits for
+    the card: once the constants are on it (a first call), the step makes
+    no host sync and can be captured (:func:`capture_step`)."""
+    return tuple(f() for f in _stage_calls(_stages(False), args, n_samples))
 
 
 def decode_step_plain(*args, n_samples: int) -> Tuple[torch.Tensor, ...]:
     """:func:`decode_step` composed of the kernels' plain PyTorch twins."""
-    return _step(_stages(True), *args, n_samples=n_samples)
+    return tuple(f() for f in _stage_calls(_stages(True), args, n_samples))
+
+
+class CapturedStep:
+    """:func:`decode_step` on fixed input tensors as one CUDA graph. A call
+    replays it and returns the step's four outputs, the same tensors at
+    every replay (the graph writes them in place): copy what must outlive
+    the next replay. ``launches`` counts the kernel launches that the graph
+    holds, i.e. one replay's; :meth:`reset` frees the graph and its memory
+    pool (the step's intermediates)."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, outputs, launches):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+    def __call__(self) -> Tuple[torch.Tensor, ...]:
+        self.graph.replay()
+        return self.outputs
+
+    def reset(self) -> None:
+        self.outputs = None
+        self.graph.reset()
+
+
+def capture_step(*args, n_samples: int) -> CapturedStep:
+    """:func:`decode_step` on ``args`` (tensors on one card) captured as one
+    CUDA graph, its four codec stages as four branches: side streams forked
+    from the capturing stream and joined before the capture ends, so that
+    the card may run one stage's small kernels beside another's large ones.
+
+    One eager step first builds what the step keeps on the card (the
+    constants, the Vorbis matrix and window, the kernel library and its
+    attributes); inside the capture nothing is copied from the host and
+    nothing waits. A failed capture raises: the step never falls back to
+    running eagerly."""
+    from .ops import _build
+
+    dev = args[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"capture_step needs tensors on a CUDA card, got "
+                         f"{dev}")
+    decode_step(*args, n_samples=n_samples)
+    streams = [torch.cuda.Stream(dev) for _ in range(4)]
+    torch.cuda.synchronize(dev)
+    before = dict(_build.LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        root = torch.cuda.current_stream(dev)
+        outputs = []
+        for call, side in zip(_stage_calls(_stages(False), args, n_samples),
+                              streams):
+            side.wait_stream(root)
+            with torch.cuda.stream(side):
+                outputs.append(call())
+        for side in streams:
+            root.wait_stream(side)
+    launches = {name: _build.LAUNCHES[name] - before[name]
+                for name in _build.KERNELS}
+    return CapturedStep(graph, tuple(outputs), launches)
 
 
 def entry(device="cuda"):

@@ -65,10 +65,11 @@ _SIGNATURES = {
     # S, N, W, tail0, boundary, pcm, tail_out, G, C, stream
     "mp3_synth_launch": [_P] * 7 + [_I, _I, _P],
     # X, M, qbuf (None: no dequant prologue), scales, deq, sfb_map, pow43,
-    # Y, L, n, stream
-    "aac_imdct_launch": [_P] * 8 + [_I, _I, _P],
-    # coeffs, qbuf, scales, deq, sfb_map, pow43, out, L, stream
-    "aac_dequant_launch": [_P] * 7 + [_I, _P],
+    # Y, L, n, rows (None: every row), n_rows, R, group, stream
+    "aac_imdct_launch": [_P] * 8 + [_I, _I, _P, _P, _I, _I, _P],
+    # coeffs, qbuf, scales, deq, sfb_map, pow43, out, L, rows (None: every
+    # row), n_rows, R, stream
+    "aac_dequant_launch": [_P] * 7 + [_I, _P, _P, _I, _P],
     # pcm, seqs, shapes, prev_shapes, first, head, delay, s_first, s_left,
     # s_right, out, L, stream
     "aac_ola_launch": [_P] * 11 + [_I, _P],

@@ -14,9 +14,14 @@ Three kernels (``csrc/aac_dense.cu``):
   ``[2n, n]`` matrix, computes the product with its rows ``n/2 .. 3n/2 -
   1`` and writes the other half of the output mirrored (half of each
   matrix's rows are exact negated copies of the others), bit for bit
-  equal to the dense product; its twin stays the dense product;
+  equal to the dense product; its twin stays the dense product. With a
+  row map (``rows``, ``n_rows`` on the card) it reads and writes only the
+  lanes the index names, in place in a caller's output: the entry step and
+  :meth:`AacDense.decode_lanes` split long from short lanes that way, with
+  no gather or scatter copy (and, in the step, no count on the host);
 * ``aac_dequant`` (A2): that prologue alone (K9), behind
-  :func:`dequant_select`;
+  :func:`dequant_select` and, through the same row map, before the entry
+  step's short IMDCT;
 * ``aac_ola`` (A3): the window/overlap-add (K8) over lanes of many
   (file, channel) sequences in one launch, with a ``first [L]`` mask that
   is true where a sequence starts (its previous delay is zero). A block
@@ -170,11 +175,30 @@ def reference_tables() -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def aac_dequant_plain(coeffs, qbuf, scales, deq, sfb_map, pow43):
+def _lanes(rows, n_rows) -> torch.Tensor:
+    """The plain twins' view of a row map: the lanes ``rows[:n_rows]`` as an
+    index (``int`` of a count on the card waits for it; the kernels never
+    do)."""
+    return rows[: int(n_rows)].long()
+
+
+def aac_dequant_plain(coeffs, qbuf, scales, deq, sfb_map, pow43, rows=None,
+                      n_rows=None):
     """Twin of A2: ``+-(pow43[min(|q|, 8191)] * scale[sfb_map[i]])`` where
     ``deq == 0``, else ``coeffs``. Rows with ``deq != 0`` may overflow to
     inf here; the select discards them (a select, never a mask product).
-    The +0.0 turns -0.0 into +0.0, as ``native.aac_dequant_host`` does."""
+    The +0.0 turns -0.0 into +0.0, as ``native.aac_dequant_host`` does.
+    With ``rows``: the same at the lanes ``rows[:n_rows]`` only (gather,
+    dequantize, scatter) in a new ``[L, 1024]`` tensor whose other rows are
+    undefined."""
+    if rows is not None:
+        lanes = _lanes(rows, n_rows)
+        out = torch.empty(coeffs.shape, dtype=torch.float32,
+                          device=coeffs.device)
+        out[lanes] = aac_dequant_plain(coeffs[lanes], qbuf[lanes],
+                                       scales[lanes], deq[lanes], sfb_map,
+                                       pow43)
+        return out
     q = qbuf.to(torch.int32)
     mag = q.abs().clamp_max(8191).long()
     v = pow43[mag] * scales[..., sfb_map.long()]
@@ -182,9 +206,21 @@ def aac_dequant_plain(coeffs, qbuf, scales, deq, sfb_map, pow43):
     return torch.where((deq == 0)[..., None], v, coeffs)
 
 
-def aac_imdct_plain(x, m, quant: Optional[Quant] = None):
+def aac_imdct_plain(x, m, quant: Optional[Quant] = None, rows=None,
+                    n_rows=None, out=None):
     """Twin of A1: ``x [L, n] -> x @ m.T [L, 2n]``, the handoff rows
-    dequantized first when ``quant`` is given."""
+    dequantized first when ``quant`` is given. With ``rows``: ``x [A,
+    1024]`` lanes, and the lanes ``rows[:n_rows]`` gathered (with their
+    quants), each as ``1024 / n`` rows of ``n`` (the eight short windows at
+    n = 128), multiplied, and scattered into ``out [A, 2048]``, which is
+    returned; its other rows are left as they are."""
+    if rows is not None:
+        lanes = _lanes(rows, n_rows)
+        q = None if quant is None else (
+            tuple(t[lanes] for t in quant[:3]) + tuple(quant[3:]))
+        y = aac_imdct_plain(x[lanes].reshape(-1, m.shape[1]), m, q)
+        out[lanes] = y.reshape(len(lanes), out.shape[1])
+        return out
     if quant is not None:
         x = aac_dequant_plain(x, *quant)
     return torch.matmul(x, m.T)
@@ -240,54 +276,95 @@ def _check_quant(quant: Quant, L: int) -> Quant:
     return qbuf, scales, deq, sfb_map, pow43
 
 
-def aac_imdct(x, m, quant: Optional[Quant] = None):
+def _check_rows(rows, n_rows) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A row map as the kernels take it: ``rows`` int32 [R] and ``n_rows``
+    one int32 (<= R, not checked: it stays on the device), both
+    contiguous; no conversion, which would copy."""
+    if (rows.dtype != torch.int32 or rows.dim() != 1 or rows.numel() == 0
+            or n_rows.dtype != torch.int32 or n_rows.numel() != 1):
+        raise ValueError("rows int32 [R], R > 0, and n_rows one int32")
+    return rows, n_rows
+
+
+def aac_imdct(x, m, quant: Optional[Quant] = None, *, rows=None, n_rows=None,
+              out=None):
     """A1 wrapper: ``x [L, n] f32 -> [L, 2n]`` with ``m [2n, n]``; ``quant``
     turns the dequant prologue on (n = 1024). ``m`` is an IMDCT matrix
     (``imdct_long``, ``imdct_short``): the kernel reads its rows ``n/2 ..
-    3n/2 - 1`` and mirrors the rest of the output."""
-    L, n = x.shape
-    if L == 0:
+    3n/2 - 1`` and mirrors the rest of the output.
+
+    With a row map (``rows`` int32 [R] and ``n_rows``, one int32 <= R, both
+    on the card, and ``out``): ``x [A, 1024]`` and ``quant`` are lanes, and
+    the lanes ``rows[:n_rows]`` go through the product, each as ``1024 /
+    n`` rows of ``n`` (a long frame at n = 1024, eight short windows at n =
+    128), into the same lanes of ``out [A, 2048]``, which is returned. No
+    other row of ``out`` is written, nothing is gathered or scattered, and
+    the count stays on the card: blocks past it return at once."""
+    mapped = rows is not None
+    if mapped != (n_rows is not None) or mapped != (out is not None):
+        raise ValueError("rows, n_rows and out go together")
+    if x.shape[0] == 0:
         raise ValueError("empty lane batch")
     if _build.device_type(x) == "cpu":
-        return aac_imdct_plain(x, m, quant)
+        return aac_imdct_plain(x, m, quant, rows, n_rows, out)
     x = x.contiguous()
     m = m.contiguous()
+    A = x.shape[0]
+    n = m.shape[1] if mapped else x.shape[1]
     if (x.dtype != torch.float32 or m.dtype != torch.float32
             or m.shape != (2 * n, n) or n % 64
             or (quant is not None and n != 1024)):
         raise ValueError("f32 x [L, n], m [2n, n], n % 64 == 0, n == 1024 "
                          "with the dequant prologue")
-    if x.data_ptr() % 16 or m.data_ptr() % 16:
-        raise ValueError("x and m must be 16-byte aligned")
-    q = () if quant is None else _check_quant(quant, L)
-    dev = _build.require_cuda(x, m, *q)
-    y = torch.empty((L, 2 * n), dtype=torch.float32, device=dev)
+    if mapped and (x.shape[1] != 1024 or 1024 % n
+                   or out.shape != (A, 2048) or out.dtype != torch.float32):
+        raise ValueError("with a row map: x [A, 1024], out f32 [A, 2048], "
+                         "n dividing 1024")
+    if x.data_ptr() % 16 or m.data_ptr() % 16 or (
+            mapped and out.data_ptr() % 16):
+        raise ValueError("x, m and out must be 16-byte aligned")
+    q = () if quant is None else _check_quant(quant, A)
+    r = _check_rows(rows, n_rows) if mapped else ()
+    dev = _build.require_cuda(x, m, *q, *r, *((out,) if mapped else ()))
+    group = 1024 // n if mapped else 1
+    y = out if mapped else torch.empty((A, 2 * n), dtype=torch.float32,
+                                       device=dev)
     qp = [None] * 5 if quant is None else [t.data_ptr() for t in q]
+    rp = [t.data_ptr() for t in r] if mapped else [None, None]
     err = _build.lib().aac_imdct_launch(
-        x.data_ptr(), m.data_ptr(), *qp, y.data_ptr(), L, n,
-        _build.stream_ptr(dev))
+        x.data_ptr(), m.data_ptr(), *qp, y.data_ptr(), A * group, n, *rp,
+        rows.numel() if mapped else 0, group, _build.stream_ptr(dev))
     _build.LAUNCHES["aac_imdct"] += 1
     _build.check("aac_imdct", err)
     return y
 
 
-def aac_dequant(coeffs, qbuf, scales, deq, sfb_map, pow43):
+def aac_dequant(coeffs, qbuf, scales, deq, sfb_map, pow43, *, rows=None,
+                n_rows=None):
     """A2 wrapper: ``coeffs [L, 1024]`` with the handoff rows (``deq ==
-    0``) replaced by their dequantized quants."""
+    0``) replaced by their dequantized quants. With a row map (``rows``
+    int32 [R] and ``n_rows``, one int32 <= R, on the card): only the rows
+    ``rows[:n_rows]`` are written, in a new ``[L, 1024]`` tensor whose
+    other rows are undefined; the count stays on the card."""
+    if (rows is None) != (n_rows is None):
+        raise ValueError("rows and n_rows go together")
     L = coeffs.shape[0]
     if L == 0:
         raise ValueError("empty lane batch")
     if _build.device_type(coeffs) == "cpu":
-        return aac_dequant_plain(coeffs, qbuf, scales, deq, sfb_map, pow43)
+        return aac_dequant_plain(coeffs, qbuf, scales, deq, sfb_map, pow43,
+                                 rows, n_rows)
     coeffs = coeffs.to(torch.float32).contiguous()
     if coeffs.shape != (L, 1024):
         raise ValueError("coeffs [L, 1024]")
     q = _check_quant((qbuf, scales, deq, sfb_map, pow43), L)
-    dev = _build.require_cuda(coeffs, *q)
+    r = () if rows is None else _check_rows(rows, n_rows)
+    dev = _build.require_cuda(coeffs, *q, *r)
     out = torch.empty((L, 1024), dtype=torch.float32, device=dev)
     err = _build.lib().aac_dequant_launch(
         coeffs.data_ptr(), *(t.data_ptr() for t in q), out.data_ptr(), L,
-        _build.stream_ptr(dev))
+        *([t.data_ptr() for t in r] if r else [None, None]),
+        rows.numel() if r else 0, _build.stream_ptr(dev))
     _build.LAUNCHES["aac_dequant"] += 1
     _build.check("aac_dequant", err)
     return out
@@ -400,10 +477,10 @@ class AacDense(nn.Module):
         ``first [L]``) -> PCM [L, 1024] float32, on this module's device.
 
         Per chunk of ``lane_chunk`` lanes (0: one chunk): one IMDCT per
-        window class, long lanes with the dequant prologue when any of them
-        hands off, both scattered into one ``[l, 2048]`` device tensor
-        (short frames as their 8 x 256 windows flattened), then one OLA
-        launch. A chunk starts one lane early, so its first lane's OLA sees
+        window class, each reading and writing its lanes through one index
+        (long lanes first, with the dequant prologue when any of them hands
+        off) in one ``[l, 2048]`` device tensor (short frames as their 8 x
+        256 windows flattened), then one OLA launch. A chunk starts one lane early, so its first lane's OLA sees
         the previous lane; only the PCM comes back to the host."""
         L = len(first)
         out = np.empty((L, 1024), np.float32)
@@ -422,23 +499,26 @@ class AacDense(nn.Module):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         seqs = np.asarray(lanes["seq"])
+        is_short = seqs == EIGHT_SHORT
+        n_short = int(is_short.sum())
+        n_long = len(seqs) - n_short
+        # One index, long lanes first, and both counts, each on the card in
+        # one copy: A1 reads and writes each class's lanes through it.
+        rows = t(np.argsort(is_short, kind="stable").astype(np.int32))
+        counts = t(np.array([n_long, n_short], np.int32))
         coeffs = t(lanes["coeffs"])
         pcm = torch.empty((len(seqs), 2048), dtype=torch.float32, device=dev)
-        long_idx = np.flatnonzero(seqs != EIGHT_SHORT)
-        if long_idx.size:
-            rows = t(long_idx)
+        if n_long:
             quant = None
-            if (np.asarray(lanes["deq"])[long_idx] == 0).any():
-                quant = self.quant(*(t(lanes[k]).index_select(0, rows)
+            if not np.all(np.asarray(lanes["deq"])[~is_short]):
+                quant = self.quant(*(t(lanes[k])
                                      for k in ("qbuf", "scales", "deq")),
                                    bands_long)
-            pcm.index_copy_(0, rows, self.imdct(
-                coeffs.index_select(0, rows), quant))
-        short_idx = np.flatnonzero(seqs == EIGHT_SHORT)
-        if short_idx.size:
-            rows = t(short_idx)
-            y = self.imdct(coeffs.index_select(0, rows).reshape(-1, 128))
-            pcm.index_copy_(0, rows, y.reshape(-1, 2048))
+            aac_imdct(coeffs, self.imdct_long, quant, rows=rows,
+                      n_rows=counts[0], out=pcm)
+        if n_short:
+            aac_imdct(coeffs, self.imdct_short, rows=rows[n_long:],
+                      n_rows=counts[1], out=pcm)
         return self.ola(pcm, t(seqs), t(lanes["shape"]),
                         t(lanes["prev_shape"]), t(first))
 

@@ -106,12 +106,20 @@ def test_short_handoff_lane_takes_a2_and_matches_reference(monkeypatch):
     deq[[2, 5]] = 0
     deq[7] = 0
     args[13], args[12] = seqs, deq
+    # A2 runs once, over the short lanes: the lanes it is given through
+    # its row map (the whole batch's coefficients, the index and the count
+    # of short lanes) are exactly the short ones.
     calls = []
     real = aac_dense.aac_dequant
-    monkeypatch.setattr(aac_dense, "aac_dequant",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
+
+    def spy(*a, **kw):
+        lanes = kw["rows"][:int(kw["n_rows"])]
+        calls.append((a[0].shape, sorted(lanes.tolist())))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(aac_dense, "aac_dequant", spy)
     got = _port_step(args, 64)
-    assert calls == [(int((seqs == 2).sum()), 1024)]
+    assert calls == [((len(seqs), 1024), sorted(np.flatnonzero(seqs == 2)))]
     _check(got, _ref_step(args, 64))
     # ... and the lanes' coefficients really were replaced.
     args[12] = np.ones_like(deq)
