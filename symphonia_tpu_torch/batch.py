@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import trace
 from .core.errors import DecodeError, Unsupported
 from .core.io import MediaSourceStream
 
@@ -73,13 +74,14 @@ class DecodedAudio:
 def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
     """STREAMINFO MD5 verification; None when the stream carries no MD5
     (the all-zero sentinel)."""
-    if si.md5 == b"\x00" * 16:
-        return None
-    from .codecs.flac import md5_bytes_of
+    with trace.span("verify"):
+        if si.md5 == b"\x00" * 16:
+            return None
+        from .codecs.flac import md5_bytes_of
 
-    return hashlib.md5(
-        md5_bytes_of(samples.astype(np.int64), si.bits_per_sample)
-    ).digest() == si.md5
+        return hashlib.md5(
+            md5_bytes_of(samples.astype(np.int64), si.bits_per_sample)
+        ).digest() == si.md5
 
 
 def _gapless_trim(pcm: np.ndarray, track, gapless: bool) -> np.ndarray:
@@ -179,8 +181,10 @@ class FlacBatchDecoder:
             if self.verify:
                 out.md5_ok = _flac_md5_ok(out.samples, si)
             return out
-        packed, blocks = (_extracted if _extracted is not None
-                          else self._extract_host(reader))
+        if _extracted is None:
+            with trace.span("extract"):
+                _extracted = self._extract_host(reader)
+        packed, blocks = _extracted
         empty = DecodedAudio(np.zeros((si.channels, 0), np.int32),
                              si.sample_rate, si.bits_per_sample)
         if packed is None and blocks is None:  # no frames found at all
@@ -189,13 +193,14 @@ class FlacBatchDecoder:
             pcm = self._decode_packed_chunked(packed, blocks)
         else:
             frames = []
-            for p in reader.packet_table().data:
-                try:
-                    frames.append(parse_frame(p, si))
-                except DecodeError:
-                    # Corrupt frame: skip the packet, as the reference
-                    # decode loop does.
-                    logger.warning("flac: skipping corrupt frame")
+            with trace.span("extract"):
+                for p in reader.packet_table().data:
+                    try:
+                        frames.append(parse_frame(p, si))
+                    except DecodeError:
+                        # Corrupt frame: skip the packet, as the reference
+                        # decode loop does.
+                        logger.warning("flac: skipping corrupt frame")
             if not frames:
                 return empty
             C = max(f.header.n_channels for f in frames)
@@ -205,12 +210,15 @@ class FlacBatchDecoder:
             outs = []
             for i in range(0, len(frames), frames_per_chunk):
                 chunk = frames[i : i + frames_per_chunk]
-                pk = flac_dense.pack_parsed_frames(chunk, n_max=n_max)
+                with trace.span("pack"):
+                    pk = flac_dense.pack_parsed_frames(chunk, n_max=n_max)
                 out = flac_dense.decode_packed(pk, self.device)
-                for j, f in enumerate(chunk):
-                    outs.append(out[j, : f.header.n_channels,
-                                    : f.header.block_size])
-            pcm = np.concatenate(outs, axis=1)
+                with trace.span("stitch"):
+                    for j, f in enumerate(chunk):
+                        outs.append(out[j, : f.header.n_channels,
+                                        : f.header.block_size])
+            with trace.span("stitch"):
+                pcm = np.concatenate(outs, axis=1)
         if si.n_samples:
             pcm = pcm[:, : si.n_samples]
         md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
@@ -221,22 +229,23 @@ class FlacBatchDecoder:
         stitch the per-frame outputs."""
         F, C, n_max = int(packed["F"]), int(packed["C"]), int(packed["n_max"])
         frames_per_chunk = max(1, self.lane_chunk // C)
-        lanes = {k: np.asarray(packed[k]).reshape(F, C, -1)
-                 for k in ("res", "coefs")}
-        per_lane = {k: np.asarray(packed[k]).reshape(F, C)
-                    for k in ("order", "shift", "wasted")}
         outs = []
         for i in range(0, F, frames_per_chunk):
             j = min(F, i + frames_per_chunk)
-            sub = {k: v[i:j].reshape((j - i) * C, -1)
-                   for k, v in lanes.items()}
-            sub.update({k: v[i:j].reshape(-1) for k, v in per_lane.items()})
-            sub.update(assign=np.asarray(packed["assign"])[i:j],
-                       F=j - i, C=C, n_max=n_max)
+            with trace.span("pack"):
+                sub = {k: np.asarray(packed[k]).reshape(F, C, -1)[i:j]
+                       .reshape((j - i) * C, -1) for k in ("res", "coefs")}
+                sub.update({k: np.asarray(packed[k]).reshape(F, C)[i:j]
+                            .reshape(-1)
+                            for k in ("order", "shift", "wasted")})
+                sub.update(assign=np.asarray(packed["assign"])[i:j],
+                           F=j - i, C=C, n_max=n_max)
             out = flac_dense.decode_packed(sub, self.device)
-            for k in range(j - i):
-                outs.append(out[k, :, : int(blocks[i + k])])
-        return np.concatenate(outs, axis=1)
+            with trace.span("stitch"):
+                for k in range(j - i):
+                    outs.append(out[k, :, : int(blocks[i + k])])
+        with trace.span("stitch"):
+            return np.concatenate(outs, axis=1)
 
     def decode_file(self, path: str) -> DecodedAudio:
         with open(path, "rb") as f:
@@ -260,20 +269,23 @@ class FlacBatchDecoder:
         jobs = []  # (result idx, stream_info, packed, blocks)
         for i, data in enumerate(datas):
             try:
-                reader = FlacReader(MediaSourceStream(data))
+                with trace.span("open"):
+                    reader = FlacReader(MediaSourceStream(data))
             except Exception:
                 reader = None  # decode_bytes raises the reader's error
             if reader is None or reader.stream_info.bits_per_sample > 25:
                 results[i] = self.decode_bytes(data)
                 continue
-            packed, blocks = self._extract_host(reader)
+            with trace.span("extract"):
+                packed, blocks = self._extract_host(reader)
             if packed is None:
                 # Robust per-file path, reusing the scan just done.
                 results[i] = self.decode_bytes(
                     data, _reader=reader, _extracted=(packed, blocks))
                 continue
-            jobs.append((i, reader.stream_info, _copy_pooled(packed),
-                         np.array(blocks, copy=True)))
+            with trace.span("pack"):
+                jobs.append((i, reader.stream_info, _copy_pooled(packed),
+                             np.array(blocks, copy=True)))
         by_c = {}
         for job in jobs:
             by_c.setdefault(int(job[2]["C"]), []).append(job)
@@ -284,38 +296,42 @@ class FlacBatchDecoder:
     def _dispatch_merged(self, C: int, group, results) -> None:
         """One merged dense pass over every stream with channel count C,
         then split, trim and verify per stream."""
-        n_max = max(int(p["n_max"]) for _, _, p, _ in group)
-        parts = {k: [] for k in ("res", "coefs", "order", "shift",
-                                 "wasted", "assign")}
-        blocks_l = []
-        spans = []
-        total_f = 0
-        for idx, si, p, blocks in group:
-            F = int(p["F"])
-            res = np.asarray(p["res"]).reshape(F, C, int(p["n_max"]))
-            if int(p["n_max"]) != n_max:
-                res = np.pad(res, ((0, 0), (0, 0),
-                                   (0, n_max - int(p["n_max"]))))
-            parts["res"].append(res.reshape(F * C, n_max))
-            parts["coefs"].append(np.asarray(p["coefs"]).reshape(F * C, 32))
-            for k in ("order", "shift", "wasted"):
-                parts[k].append(np.asarray(p[k]).reshape(F * C))
-            parts["assign"].append(np.asarray(p["assign"])[:F])
-            blocks_l.append(np.asarray(blocks))
-            spans.append((idx, si, int(np.asarray(blocks).sum())))
-            total_f += F
-        merged = {k: np.concatenate(v) for k, v in parts.items()}
-        merged.update(F=total_f, C=C, n_max=n_max)
-        pcm_all = self._decode_packed_chunked(merged, np.concatenate(blocks_l))
-        pos = 0
-        for idx, si, n in spans:
-            pcm = pcm_all[:, pos : pos + n]
-            pos += n
-            if si.n_samples:
-                pcm = pcm[:, : si.n_samples]
-            md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
-            results[idx] = DecodedAudio(pcm, si.sample_rate,
-                                        si.bits_per_sample, md5_ok)
+        with trace.span("pack"):
+            n_max = max(int(p["n_max"]) for _, _, p, _ in group)
+            parts = {k: [] for k in ("res", "coefs", "order", "shift",
+                                     "wasted", "assign")}
+            blocks_l = []
+            spans = []
+            total_f = 0
+            for idx, si, p, blocks in group:
+                F = int(p["F"])
+                res = np.asarray(p["res"]).reshape(F, C, int(p["n_max"]))
+                if int(p["n_max"]) != n_max:
+                    res = np.pad(res, ((0, 0), (0, 0),
+                                       (0, n_max - int(p["n_max"]))))
+                parts["res"].append(res.reshape(F * C, n_max))
+                parts["coefs"].append(
+                    np.asarray(p["coefs"]).reshape(F * C, 32))
+                for k in ("order", "shift", "wasted"):
+                    parts[k].append(np.asarray(p[k]).reshape(F * C))
+                parts["assign"].append(np.asarray(p["assign"])[:F])
+                blocks_l.append(np.asarray(blocks))
+                spans.append((idx, si, int(np.asarray(blocks).sum())))
+                total_f += F
+            merged = {k: np.concatenate(v) for k, v in parts.items()}
+            merged.update(F=total_f, C=C, n_max=n_max)
+            blocks_all = np.concatenate(blocks_l)
+        pcm_all = self._decode_packed_chunked(merged, blocks_all)
+        with trace.span("stitch"):
+            pos = 0
+            for idx, si, n in spans:
+                pcm = pcm_all[:, pos : pos + n]
+                pos += n
+                if si.n_samples:
+                    pcm = pcm[:, : si.n_samples]
+                md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
+                results[idx] = DecodedAudio(pcm, si.sample_rate,
+                                            si.bits_per_sample, md5_ok)
 
 
 class Mp3BatchDecoder:
@@ -350,8 +366,9 @@ class Mp3BatchDecoder:
         from .core.formats import FormatOptions
         from .formats.mpa import MpaReader
 
-        return MpaReader(MediaSourceStream(data),
-                         FormatOptions(enable_gapless=self.gapless))
+        with trace.span("open"):
+            return MpaReader(MediaSourceStream(data),
+                             FormatOptions(enable_gapless=self.gapless))
 
     @staticmethod
     def _extract(reader):
@@ -379,16 +396,17 @@ class Mp3BatchDecoder:
         ht = st = None
         for i in range(0, G, self.granule_chunk):
             j = min(G, i + self.granule_chunk)
-            bd = (None if boundary is None
-                  else torch.from_numpy(boundary[i:j]).to(dev))
-            out, ht, st = self.dense(
-                torch.from_numpy(np.ascontiguousarray(spectra[i:j])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(bt[i:j])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(mixed[i:j])).to(dev),
-                ht, st, boundary=bd)
-            parts.append(out.cpu().numpy())
-        return (np.concatenate(parts, axis=0) if parts
-                else np.zeros((0, C, 576), np.float32))
+            lanes = [spectra[i:j], bt[i:j], mixed[i:j]]
+            if boundary is not None:
+                lanes.append(boundary[i:j])
+            x, b, m, *bd = trace.to_device(dev, *lanes)
+            with trace.span("enqueue"):
+                out, ht, st = self.dense(x, b, m, ht, st,
+                                         boundary=bd[0] if bd else None)
+            parts.append(trace.to_host(out))
+        with trace.span("stitch"):
+            return (np.concatenate(parts, axis=0) if parts
+                    else np.zeros((0, C, 576), np.float32))
 
     def decode_bytes(self, data: bytes) -> DecodedAudio:
         from . import native
@@ -400,13 +418,15 @@ class Mp3BatchDecoder:
             return self._decode_l12(data, reader)
         if not native.available():
             return _host_decode(data, self.gapless)
-        got = self._extract(reader)
+        with trace.span("extract"):
+            got = self._extract(reader)
         if got is None:
             return _host_decode(data, self.gapless)
         pcm = self._dense_chunked(*got)
         C = h.n_channels
-        pcm = pcm.transpose(1, 0, 2).reshape(C, -1)
-        pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
+        with trace.span("stitch"):
+            pcm = pcm.transpose(1, 0, 2).reshape(C, -1)
+            pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
         return DecodedAudio(pcm, h.sample_rate, 32)
 
     def _decode_l12(self, data: bytes, reader) -> DecodedAudio:
@@ -429,38 +449,45 @@ class Mp3BatchDecoder:
         buf = reader._buf
         sf_table = tables()["layer12_scalefactors"]
         frames = []
-        for off, size in zip(reader._offsets, reader._sizes):
-            frame = bytes(buf[off : off + size])
-            try:
-                fh = parse_header(int.from_bytes(frame[:4], "big"))
-            except DecodeError:
-                return _host_decode(data, self.gapless)
-            pos = 4 + (2 if fh.has_crc else 0)
-            if fh.layer == LAYER1:
-                layer, T, sblimit, rows = 1, 12, 32, None
-                bound = min(_intensity_bound(fh), 32)
-            else:
-                layer, T = 2, 36
-                sblimit, rows = _find_sb_info(fh)
-                bound = min(_intensity_bound(fh), sblimit)
-            s = native.mpa_l12_extract(
-                layer, bytes(frame[pos : fh.frame_size]), fh.n_channels,
-                bound, sblimit, rows, sf_table)
-            if s is None or fh.n_channels != C or fh.layer != h.layer:
-                return _host_decode(data, self.gapless)
-            # The extraction's output is pooled: copy before the next call.
-            frames.append(s[:C].reshape(C, 32, T).copy())
+        # The frames' native bitstream stage; a stream the host route takes
+        # decodes inside this span.
+        with trace.span("extract"):
+            for off, size in zip(reader._offsets, reader._sizes):
+                frame = bytes(buf[off : off + size])
+                try:
+                    fh = parse_header(int.from_bytes(frame[:4], "big"))
+                except DecodeError:
+                    return _host_decode(data, self.gapless)
+                pos = 4 + (2 if fh.has_crc else 0)
+                if fh.layer == LAYER1:
+                    layer, T, sblimit, rows = 1, 12, 32, None
+                    bound = min(_intensity_bound(fh), 32)
+                else:
+                    layer, T = 2, 36
+                    sblimit, rows = _find_sb_info(fh)
+                    bound = min(_intensity_bound(fh), sblimit)
+                s = native.mpa_l12_extract(
+                    layer, bytes(frame[pos : fh.frame_size]), fh.n_channels,
+                    bound, sblimit, rows, sf_table)
+                if s is None or fh.n_channels != C or fh.layer != h.layer:
+                    return _host_decode(data, self.gapless)
+                # The extraction's output is pooled: copy before the next
+                # call.
+                frames.append(s[:C].reshape(C, 32, T).copy())
         if not frames:
             return _host_decode(data, self.gapless)
-        sb = np.stack(frames)  # [F, C, 32, T]
+        with trace.span("pack"):
+            sb = np.stack(frames)  # [F, C, 32, T]
         parts = []
         tail = None
         for i in range(0, len(sb), self.granule_chunk):
-            pcm, tail = self.l12(torch.from_numpy(
-                sb[i : i + self.granule_chunk]).to(self.device), tail)
-            parts.append(pcm.cpu().numpy())
-        pcm = np.concatenate(parts).transpose(1, 0, 2).reshape(C, -1)
-        pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
+            x, = trace.to_device(self.device, sb[i : i + self.granule_chunk])
+            with trace.span("enqueue"):
+                pcm, tail = self.l12(x, tail)
+            parts.append(trace.to_host(pcm))
+        with trace.span("stitch"):
+            pcm = np.concatenate(parts).transpose(1, 0, 2).reshape(C, -1)
+            pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
         return DecodedAudio(pcm, h.sample_rate, 32)
 
     def decode_file(self, path: str) -> DecodedAudio:
@@ -484,7 +511,8 @@ class Mp3BatchDecoder:
                 if native.available():
                     reader = self._reader(data)
                     if reader.header.layer == LAYER3:
-                        got = self._extract(reader)
+                        with trace.span("extract"):
+                            got = self._extract(reader)
             except Exception:
                 got = None  # decode_bytes raises or routes the stream
             if got is None:
@@ -499,20 +527,25 @@ class Mp3BatchDecoder:
         return results
 
     def _dispatch_merged(self, C: int, group, results) -> None:
-        spectra = np.concatenate([g[2] for g in group])
-        bt = np.concatenate([g[3] for g in group])
-        mixed = np.concatenate([g[4] for g in group])
-        counts = [g[2].shape[0] for g in group]
-        boundary = np.zeros(spectra.shape[0], bool)
-        starts = np.cumsum([0] + counts[:-1])
-        boundary[starts[np.asarray(counts) > 0]] = True
+        with trace.span("pack"):
+            spectra = np.concatenate([g[2] for g in group])
+            bt = np.concatenate([g[3] for g in group])
+            mixed = np.concatenate([g[4] for g in group])
+            counts = [g[2].shape[0] for g in group]
+            boundary = np.zeros(spectra.shape[0], bool)
+            starts = np.cumsum([0] + counts[:-1])
+            boundary[starts[np.asarray(counts) > 0]] = True
         pcm_all = self._dense_chunked(spectra, bt, mixed, boundary)
-        pos = 0
-        for (idx, reader, _, _, _), n_g in zip(group, counts):
-            pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(C, -1)
-            pos += n_g
-            pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
-            results[idx] = DecodedAudio(pcm, reader.header.sample_rate, 32)
+        with trace.span("stitch"):
+            pos = 0
+            for (idx, reader, _, _, _), n_g in zip(group, counts):
+                pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(
+                    C, -1)
+                pos += n_g
+                pcm = _gapless_trim(pcm, reader.default_track(),
+                                    self.gapless)
+                results[idx] = DecodedAudio(pcm, reader.header.sample_rate,
+                                            32)
 
 
 def _oracle_lanes(items) -> dict:
@@ -601,7 +634,8 @@ class AacBatchDecoder:
         return dec, [_oracle_lanes(it) for it in items]
 
     def decode_bytes(self, data: bytes) -> DecodedAudio:
-        dec, chans = self._extract_host(data)
+        with trace.span("extract"):
+            dec, chans = self._extract_host(data)
         results: List[Optional[DecodedAudio]] = [None]
         self._dispatch_merged(dec.bands_long, [(0, dec, chans)], results)
         return results[0]
@@ -618,7 +652,8 @@ class AacBatchDecoder:
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         groups = {}
         for i, data in enumerate(datas):
-            dec, chans = self._extract_host(data)
+            with trace.span("extract"):
+                dec, chans = self._extract_host(data)
             key = tuple(int(b) for b in dec.bands_long)
             groups.setdefault(key, []).append((i, dec, chans))
         for bl, group in groups.items():
@@ -629,32 +664,35 @@ class AacBatchDecoder:
         """One dense pass over every lane of the group (``first`` marks
         each sequence start), then split, and pad the channels of each
         stream to one length."""
-        parts = {k: [] for k in LANE_KEYS}
-        firsts = []
-        for _, _, chans in group:
-            for ch in chans:
-                n = len(ch["seq"])
-                if not n:
-                    continue
-                for k in LANE_KEYS:
-                    parts[k].append(ch[k])
-                f = np.zeros(n, bool)
-                f[0] = True
-                firsts.append(f)
+        with trace.span("pack"):
+            parts = {k: [] for k in LANE_KEYS}
+            firsts = []
+            for _, _, chans in group:
+                for ch in chans:
+                    n = len(ch["seq"])
+                    if not n:
+                        continue
+                    for k in LANE_KEYS:
+                        parts[k].append(ch[k])
+                    f = np.zeros(n, bool)
+                    f[0] = True
+                    firsts.append(f)
+            if firsts:
+                lanes = {k: np.concatenate(v) for k, v in parts.items()}
+                first = np.concatenate(firsts)
         out = np.zeros((0, 1024), np.float32)
         if firsts:
-            out = self.dense.decode_lanes(
-                {k: np.concatenate(v) for k, v in parts.items()},
-                np.concatenate(firsts), bl, self.LANE_CHUNK)
-        pos = 0
-        for idx, dec, chans in group:
-            lens = [len(ch["seq"]) for ch in chans]
-            pcm = np.zeros((len(chans), 1024 * max(lens, default=0)),
-                           np.float32)
-            for c, n in enumerate(lens):
-                pcm[c, : 1024 * n] = out[pos : pos + n].reshape(-1)
-                pos += n
-            results[idx] = DecodedAudio(pcm, dec.spec.rate, 32)
+            out = self.dense.decode_lanes(lanes, first, bl, self.LANE_CHUNK)
+        with trace.span("stitch"):
+            pos = 0
+            for idx, dec, chans in group:
+                lens = [len(ch["seq"]) for ch in chans]
+                pcm = np.zeros((len(chans), 1024 * max(lens, default=0)),
+                               np.float32)
+                for c, n in enumerate(lens):
+                    pcm[c, : 1024 * n] = out[pos : pos + n].reshape(-1)
+                    pos += n
+                results[idx] = DecodedAudio(pcm, dec.spec.rate, 32)
 
 
 class VorbisBatchDecoder:
@@ -734,10 +772,12 @@ class VorbisBatchDecoder:
         return DecodedAudio(out, track.codec_params.sample_rate, 32)
 
     def decode_bytes(self, data: bytes) -> DecodedAudio:
-        track, dec, spectra, flags, trims = self._extract_host(data)
+        with trace.span("extract"):
+            track, dec, spectra, flags, trims = self._extract_host(data)
         pcm = decode_packets_dense(spectra, flags, dec.bs0, dec.bs1,
                                    dense=self.dense)
-        return self._finish(track, pcm, trims)
+        with trace.span("stitch"):
+            return self._finish(track, pcm, trims)
 
     def decode_file(self, path: str) -> DecodedAudio:
         with open(path, "rb") as f:
@@ -748,13 +788,17 @@ class VorbisBatchDecoder:
         stream group by block size across files, one IMDCT per distinct
         size; output per file equals ``decode_bytes``. An undecodable
         stream raises what ``decode_bytes`` raises for it."""
-        got = [self._extract_host(d) for d in datas]
+        got = []
+        for d in datas:
+            with trace.span("extract"):
+                got.append(self._extract_host(d))
         pcms = decode_packets_dense_multi(
             [(spectra, flags, dec.bs0, dec.bs1)
              for _, dec, spectra, flags, _ in got],
             dense=self.dense)
-        return [self._finish(track, pcm, trims)
-                for (track, _, _, _, trims), pcm in zip(got, pcms)]
+        with trace.span("stitch"):
+            return [self._finish(track, pcm, trims)
+                    for (track, _, _, _, trims), pcm in zip(got, pcms)]
 
 
 def _audio_track_or_raise(fmt):
@@ -890,25 +934,33 @@ def decode_many(datas: Sequence[bytes], *, device="cuda",
     while the batch is probed, before the groups, as in the reference
     (``symphonia_tpu/batch.py:645-666``). Output order matches input order.
     Fail-fast: an undecodable stream raises what ``decode_bytes`` raises
-    for it, and the first to raise is the reference's."""
-    resolve_device(device)
-    routes = []
-    results: List[Optional[DecodedAudio]] = [None] * len(datas)
-    mpa = Mp3BatchDecoder(device=device)
-    for i, data in enumerate(datas):
-        route, fmt, track = _probe(data)
-        routes.append(route)
-        if route == "packet":
-            results[i] = _packet_decode(fmt, track, verify)
-        elif route in ("mp1", "mp2"):
-            results[i] = mpa.decode_bytes(data)
-    for codecs, dec in (
-            (("flac",), FlacBatchDecoder(device=device, verify=verify)),
-            (("mp3",), mpa),
-            (("aac",), AacBatchDecoder(device=device)),
-            (("vorbis",), VorbisBatchDecoder(device=device))):
-        idx = [i for i, r in enumerate(routes) if r in codecs]
-        if idx:
-            for i, out in zip(idx, dec.decode_many([datas[i] for i in idx])):
-                results[i] = out
-    return results
+    for it, and the first to raise is the reference's.
+
+    Each call is one request of :mod:`trace` (root span ``decode_many``)
+    while ``torch.profiler`` records."""
+    with trace.span("decode_many"):
+        resolve_device(device)
+        with trace.span("setup"):
+            mpa = Mp3BatchDecoder(device=device)
+            decoders = (
+                (("flac",), FlacBatchDecoder(device=device, verify=verify)),
+                (("mp3",), mpa),
+                (("aac",), AacBatchDecoder(device=device)),
+                (("vorbis",), VorbisBatchDecoder(device=device)))
+        routes = []
+        results: List[Optional[DecodedAudio]] = [None] * len(datas)
+        for i, data in enumerate(datas):
+            with trace.span("probe"):
+                route, fmt, track = _probe(data)
+            routes.append(route)
+            if route == "packet":
+                results[i] = _packet_decode(fmt, track, verify)
+            elif route in ("mp1", "mp2"):
+                results[i] = mpa.decode_bytes(data)
+        for codecs, dec in decoders:
+            idx = [i for i, r in enumerate(routes) if r in codecs]
+            if idx:
+                for i, out in zip(idx,
+                                  dec.decode_many([datas[i] for i in idx])):
+                    results[i] = out
+        return results

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..codecs.aac import (
     EIGHT_SHORT,
     LONG_START,
@@ -489,38 +490,43 @@ class AacDense(nn.Module):
             a, e = max(0, s - 1), min(L, s + step)
             pcm = self._decode_span({k: v[a:e] for k, v in lanes.items()},
                                     first[a:e], bands_long)
-            out[s:e] = pcm[s - a:].cpu().numpy()
+            out[s:e] = trace.to_host(pcm[s - a:])
         return out
 
     def _decode_span(self, lanes, first, bands_long) -> torch.Tensor:
+        """One chunk's launches; the copies they need go in ``h2d`` spans
+        (those of the dequant and the OLA inside the ``enqueue`` span, in
+        launch order)."""
         dev = self.pow43.device
-
-        def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-        seqs = np.asarray(lanes["seq"])
-        is_short = seqs == EIGHT_SHORT
-        n_short = int(is_short.sum())
-        n_long = len(seqs) - n_short
+        with trace.span("pack"):
+            seqs = np.asarray(lanes["seq"])
+            is_short = seqs == EIGHT_SHORT
+            n_short = int(is_short.sum())
+            n_long = len(seqs) - n_short
+            order = np.argsort(is_short, kind="stable").astype(np.int32)
+            dequant = n_long and not np.all(
+                np.asarray(lanes["deq"])[~is_short])
         # One index, long lanes first, and both counts, each on the card in
         # one copy: A1 reads and writes each class's lanes through it.
-        rows = t(np.argsort(is_short, kind="stable").astype(np.int32))
-        counts = t(np.array([n_long, n_short], np.int32))
-        coeffs = t(lanes["coeffs"])
-        pcm = torch.empty((len(seqs), 2048), dtype=torch.float32, device=dev)
-        if n_long:
-            quant = None
-            if not np.all(np.asarray(lanes["deq"])[~is_short]):
-                quant = self.quant(*(t(lanes[k])
-                                     for k in ("qbuf", "scales", "deq")),
-                                   bands_long)
-            aac_imdct(coeffs, self.imdct_long, quant, rows=rows,
-                      n_rows=counts[0], out=pcm)
-        if n_short:
-            aac_imdct(coeffs, self.imdct_short, rows=rows[n_long:],
-                      n_rows=counts[1], out=pcm)
-        return self.ola(pcm, t(seqs), t(lanes["shape"]),
-                        t(lanes["prev_shape"]), t(first))
+        rows, counts, coeffs = trace.to_device(
+            dev, order, np.array([n_long, n_short], np.int32),
+            lanes["coeffs"])
+        with trace.span("enqueue"):
+            pcm = torch.empty((len(seqs), 2048), dtype=torch.float32,
+                              device=dev)
+            if n_long:
+                quant = None
+                if dequant:
+                    quant = self.quant(*trace.to_device(
+                        dev, *(lanes[k] for k in ("qbuf", "scales", "deq"))),
+                        bands_long)
+                aac_imdct(coeffs, self.imdct_long, quant, rows=rows,
+                          n_rows=counts[0], out=pcm)
+            if n_short:
+                aac_imdct(coeffs, self.imdct_short, rows=rows[n_long:],
+                          n_rows=counts[1], out=pcm)
+            return self.ola(pcm, *trace.to_device(
+                dev, seqs, lanes["shape"], lanes["prev_shape"], first))
 
 
 # ---------------------------------------------------------------------------

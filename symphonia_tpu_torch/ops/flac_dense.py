@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from . import _build
 
 MAX_ORDER = 32
@@ -305,17 +306,18 @@ def pack_parsed_frames(frames, n_max: int | None = None):
 
 def decode_packed(packed, device) -> np.ndarray:
     """Run the dense stage on packed numpy tensors on ``device`` ->
-    int32 [F, C, n_max] numpy."""
-    device = torch.device(device)
-
-    def put(k):
-        return torch.from_numpy(np.ascontiguousarray(packed[k])).to(device)
-
+    int32 [F, C, n_max] numpy: every lane array to the device in one
+    ``h2d`` span, the launches, then the result back."""
     n_max = int(packed["n_max"])
-    x = lpc_reconstruct_batch(put("res"), put("coefs"), put("order"),
-                              put("shift"), n_max, wasted=put("wasted"))
     F, C = int(packed["F"]), int(packed["C"])
-    x = x.reshape(F, C, n_max)
-    if C == 2:
-        x = decorrelate_batch(x, put("assign"))
-    return x.cpu().numpy()
+    keys = ("res", "coefs", "order", "shift", "wasted")
+    keys += ("assign",) if C == 2 else ()
+    t = dict(zip(keys, trace.to_device(torch.device(device),
+                                       *(packed[k] for k in keys))))
+    with trace.span("enqueue"):
+        x = lpc_reconstruct_batch(t["res"], t["coefs"], t["order"],
+                                  t["shift"], n_max, wasted=t["wasted"])
+        x = x.reshape(F, C, n_max)
+        if C == 2:
+            x = decorrelate_batch(x, t["assign"])
+    return trace.to_host(x)

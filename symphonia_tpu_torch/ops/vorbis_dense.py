@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..codecs.vorbis import imdct_matrix, vorbis_window
 from . import _build
 
@@ -195,9 +196,11 @@ def imdct_group(spectra: np.ndarray, n: int, *, dense: VorbisDense
     L = len(spectra)
     out = np.empty((L, n), np.float32)
     for s in range(0, L, LANE_CHUNK):
-        x = torch.from_numpy(np.ascontiguousarray(
-            spectra[s : s + LANE_CHUNK], dtype=np.float32)).to(dense.device)
-        out[s : s + LANE_CHUNK] = dense.imdct(x, n).cpu().numpy()
+        x, = trace.to_device(dense.device, np.asarray(
+            spectra[s : s + LANE_CHUNK], dtype=np.float32))
+        with trace.span("enqueue"):
+            y = dense.imdct(x, n)
+        out[s : s + LANE_CHUNK] = trace.to_host(y)
     return out
 
 
@@ -221,26 +224,32 @@ def decode_packets_dense_multi(jobs, *, dense: VorbisDense
     job without packets gives ``zeros((1, 0))``."""
     lane_map: dict = {}   # n -> list of [n/2] rows
     slot_map: dict = {}   # n -> list of (job, packet, channel)
-    for ji, (spectra_list, flags, bs0, bs1) in enumerate(jobs):
-        for p, f in enumerate(flags):
-            n = bs1 if f else bs0
-            for c in range(spectra_list[p].shape[0]):
-                lane_map.setdefault(n, []).append(spectra_list[p][c][: n // 2])
-                slot_map.setdefault(n, []).append((ji, p, c))
+    with trace.span("pack"):
+        for ji, (spectra_list, flags, bs0, bs1) in enumerate(jobs):
+            for p, f in enumerate(flags):
+                n = bs1 if f else bs0
+                for c in range(spectra_list[p].shape[0]):
+                    lane_map.setdefault(n, []).append(
+                        spectra_list[p][c][: n // 2])
+                    slot_map.setdefault(n, []).append((ji, p, c))
     out_imdct = [
         [[None] * len(flags)
          for _ in range(spectra_list[0].shape[0] if spectra_list else 1)]
         for spectra_list, flags, _, _ in jobs
     ]
     for n, lanes in lane_map.items():
-        y = imdct_group(np.stack(lanes), n, dense=dense)
-        for row, (ji, p, c) in enumerate(slot_map[n]):
-            out_imdct[ji][c][p] = y[row]
+        with trace.span("pack"):
+            rows = np.stack(lanes)
+        y = imdct_group(rows, n, dense=dense)
+        with trace.span("stitch"):
+            for row, (ji, p, c) in enumerate(slot_map[n]):
+                out_imdct[ji][c][p] = y[row]
     outs = []
-    for ji, (spectra_list, flags, bs0, bs1) in enumerate(jobs):
-        if not spectra_list:
-            outs.append(np.zeros((1, 0), np.float32))
-            continue
-        outs.append(np.stack([lap_stitch(ch, flags, bs0, bs1)
-                              for ch in out_imdct[ji]]))
+    with trace.span("stitch"):
+        for ji, (spectra_list, flags, bs0, bs1) in enumerate(jobs):
+            if not spectra_list:
+                outs.append(np.zeros((1, 0), np.float32))
+                continue
+            outs.append(np.stack([lap_stitch(ch, flags, bs0, bs1)
+                                  for ch in out_imdct[ji]]))
     return outs
