@@ -135,7 +135,16 @@ Phases (one line each; any failure raises and exits non-zero):
      on the card: its corpus, built by ``testing.golden_corpus``, decoded
      by ``decode_many`` on the card (run after phase 3), integer entries
      bit-exact and float entries within 1e-5, pygame's two real-media
-     files decoded where they exist and named as absent where not.
+     files decoded where they exist and named as absent where not;
+ 11. ``md5``: F3 ``flac_md5`` against ``hashlib`` for every stream at the
+     FLAC bulk cell's shape (128 mono 16-bit streams of the LibriSpeech
+     pool's lengths, 6,410 frames of 4,096) and on stereo 24-bit streams
+     of varying block size, trimmed and split over three lane chunks; its
+     time beside its chain bound (the longest stream's blocks x 64 steps
+     at the step latency this run measures), its
+     registers, spills and launches; the host path (``_flac_md5_ok``) over
+     the same 128 streams, one F3 chain alone, and their rates' ratio, the
+     rule's ``MD5_HOST_PER_CHAIN``.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -152,6 +161,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ProcessPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -223,6 +233,9 @@ KERNEL_INFO = {
                  "symphonia_tpu/ops/flac_dense.py:44"),
     "flac_decorrelate": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
                          "symphonia_tpu/ops/flac_dense.py:84"),
+    # F3 replaces no device program: the reference hashes on the host.
+    "flac_md5": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
+                 "none (symphonia_tpu/batch.py:_flac_md5_ok, host)"),
     "mp3_hybrid": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
                    "symphonia_tpu/ops/mp3_dense.py:346"),
     "mp3_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
@@ -2628,6 +2641,185 @@ def phase_multichip(runs=MULTICHIP_RUNS) -> dict:
     return info
 
 
+# Phase 11: the FLAC bulk cell's pool (benchmark/configs/librispeech_flac
+# .json): 128 durations, the quantiles of a Beta(3, 5.72) on [1, 35] s, at
+# 16 kHz in frames of 4,096 samples.
+MD5_POOL = dict(streams=128, rate=16000, block=4096, beta=(3.0, 5.72),
+                seconds=(1.0, 35.0), lpc_order=8)
+
+
+def _md5_pool_lengths() -> np.ndarray:
+    p = MD5_POOL
+    a, b = p["beta"]
+    t = (np.arange(1 << 16) + 0.5) / (1 << 16)
+    cdf = np.cumsum(t ** (a - 1) * (1 - t) ** (b - 1))
+    q = np.interp((np.arange(p["streams"]) + 0.5) / p["streams"],
+                  cdf / cdf[-1], t)
+    secs = p["seconds"][0] + (p["seconds"][1] - p["seconds"][0]) * q
+    n = np.round(secs * p["rate"]).astype(np.int64)
+    r = n % p["block"]
+    grow = (r > 0) & (r <= p["lpc_order"])
+    return n + np.where(grow, p["lpc_order"] + 1 - r, 0)
+
+
+def _md5_case(lengths, C: int, bps: int, block_sizes, trims, seed: int,
+              dev):
+    """Decoded lanes x [F, C, n_max] on the card for streams of
+    ``lengths`` samples (frames of ``block_sizes``, cycled), each hashed to
+    ``trims`` of its samples, and hashlib's digest of each stream."""
+    import hashlib
+
+    import torch
+
+    from symphonia_tpu_torch.codecs.flac import md5_bytes_of
+
+    rng = np.random.default_rng(seed)
+    blocks, first, frames, want = [], [], [], []
+    for k, n in enumerate(lengths):
+        first.append(len(blocks))
+        left = int(n)
+        while left > 0:
+            b = min(int(block_sizes[len(blocks) % len(block_sizes)]), left)
+            blocks.append(b)
+            left -= b
+        frames.append(len(blocks) - first[-1])
+    blocks = np.array(blocks, np.int32)
+    n_max = int(max(block_sizes))
+    lim = 1 << (bps - 1)
+    x = rng.integers(-lim, lim, size=(len(blocks), C, n_max),
+                     dtype=np.int64).astype(np.int32)
+    for k in range(len(lengths)):
+        f0, nf = first[k], frames[k]
+        pcm = np.concatenate([x[f, :, : blocks[f]]
+                              for f in range(f0, f0 + nf)], axis=1)
+        want.append(hashlib.md5(md5_bytes_of(
+            pcm[:, : trims[k]].astype(np.int64), bps)).digest())
+    return dict(x=torch.from_numpy(x).to(dev), blocks=blocks, first=first,
+                frames=frames, n_hash=list(trims), width=(bps + 7) // 8,
+                want=want, x_host=x)
+
+
+def _md5_run(case, dev, cuts=()):
+    """F3 over ``case`` in lane chunks cut at ``cuts`` -> the digests."""
+    import torch
+
+    from symphonia_tpu_torch.ops import flac_dense as fd
+
+    md5 = fd.LaneMd5(case["first"], case["frames"], case["n_hash"],
+                     [case["width"]] * len(case["first"]), case["blocks"],
+                     dev)
+    F = case["x"].shape[0]
+    edges = [0] + list(cuts) + [F]
+    for i, j in zip(edges, edges[1:]):
+        md5.update(case["x"][i:j], torch.from_numpy(md5.table(i, j)).to(dev))
+    return md5
+
+
+def step_ns() -> float:
+    """Nanoseconds one step of an MD5 chain takes (LOP3, add, rotate and
+    add: three dependent operations as compiled; one thread), measured by
+    csrc/flac_dense.cu's md5_chain_kernel."""
+    import torch
+
+    from symphonia_tpu_torch.ops import _build
+
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    iters = 1 << 20
+    fn = _build.lib().flac_md5_chain_launch
+
+    def run():
+        _build.check("md5_chain", fn(out.data_ptr(), iters,
+                                     torch.cuda.current_stream().cuda_stream))
+
+    return cuda_ms(run, 3) * 1e6 / iters
+
+
+def phase_md5() -> dict:
+    import torch
+
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    lengths = _md5_pool_lengths()
+    B = MD5_POOL["block"]
+    pool = _md5_case(lengths, 1, 16, [B], lengths, SEED + 11, dev)
+    F = pool["x"].shape[0]
+    md5 = _md5_run(pool, dev)
+    got = md5.digests()
+    bad = [k for k, (g, w) in enumerate(zip(got, pool["want"])) if g != w]
+    if bad:
+        raise AssertionError(f"flac_md5: streams {bad} differ from hashlib")
+    table = torch.from_numpy(md5.table(0, F)).to(dev)
+    ms = cuda_ms(lambda: md5.update(pool["x"], table), 5)
+    enq = enqueue_ms(lambda: md5.update(pool["x"], table), 5)
+
+    # Stereo 24-bit: block sizes that vary frame to frame, streams trimmed
+    # inside their last frame, three lane chunks that split streams.
+    lens = [5000 + 1733 * k for k in range(12)]
+    trims = [n - (k % 3) * 7 for k, n in enumerate(lens)]
+    st = _md5_case(lens, 2, 24, [4096, 1152, 4608, 576, 17], trims,
+                   SEED + 12, dev)
+    Fs = st["x"].shape[0]
+    got = _md5_run(st, dev, cuts=(Fs // 3, 2 * Fs // 3)).digests()
+    bad_st = [k for k, (g, w) in enumerate(zip(got, st["want"])) if g != w]
+    if bad_st:
+        raise AssertionError(f"flac_md5 stereo 24-bit: streams {bad_st} "
+                             "differ from hashlib")
+
+    # The chain bound, and the rule's ratio: the host path over the 128
+    # streams (planar int32 as the stitch hands them) against one chain.
+    lat = step_ns()
+    nbytes = [2 * int(n) for n in lengths]
+    longest = int(np.argmax(lengths))
+    blocks_max = -(-(nbytes[longest] + 9) // 64)
+    chain_ms = blocks_max * 64 * lat * 1e-6
+    bytes_ms = (4 * F * B + 4 * (8 * 128 + F) + 16 * 128) / HBM_BYTES_PER_S \
+        * 1e3
+    one = _md5_case([lengths[longest]], 1, 16, [B], [lengths[longest]],
+                    SEED + 13, dev)
+    one_md5 = _md5_run(one, dev)
+    if one_md5.digests() != one["want"]:
+        raise AssertionError("flac_md5: the longest stream alone differs")
+    one_table = torch.from_numpy(one_md5.table(0, one["x"].shape[0])).to(dev)
+    one_ms = cuda_ms(lambda: one_md5.update(one["x"], one_table), 5)
+
+    xs = pool["x_host"]
+    pcms, sis = [], []
+    for k in range(len(lengths)):
+        f0, nf = pool["first"][k], pool["frames"][k]
+        pcms.append(np.ascontiguousarray(xs[f0 : f0 + nf, 0, :].reshape(
+            -1)[: lengths[k]])[None, :])
+        sis.append(SimpleNamespace(bits_per_sample=16, md5=pool["want"][k]))
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        oks = [batch._flac_md5_ok(p, si) for p, si in zip(pcms, sis)]
+        host.append((time.perf_counter() - t0) * 1e3)
+    if not all(oks):
+        raise AssertionError("the host path rejects the pool's digests")
+    host_ms = min(host)
+    host_rate = sum(nbytes) / host_ms
+    chain_rate = nbytes[longest] / one_ms
+    info = dict(
+        shape=[F, 1, B], streams=len(lengths),
+        longest_bytes=nbytes[longest], sum_over_max=sum(nbytes) /
+        nbytes[longest], ms=ms, enqueue_ms=enq, one_chain_ms=one_ms,
+        step_ns=lat, bound_ms=max(chain_ms, bytes_ms),
+        bound_by="chain" if chain_ms >= bytes_ms else "bytes",
+        bytes_bound_ms=bytes_ms, share_of_bound=max(chain_ms, bytes_ms) / ms,
+        host_ms=host_ms, host_ms_runs=host, host_mb_per_s=host_rate / 1e3,
+        chain_mb_per_s=chain_rate / 1e3, host_per_chain=host_rate /
+        chain_rate, rule=batch.MD5_HOST_PER_CHAIN,
+        stereo24=dict(streams=len(lens), frames=Fs, chunks=3),
+        launches=dict(_build.LAUNCHES),
+        attributes=_attributes([("md5", _build.lib().flac_md5_attributes,
+                                 ())]))
+    print("phase 11 md5:", json.dumps(info), flush=True)
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -2691,12 +2883,17 @@ def main() -> int:
     bn = timed("7", phase_bench)
     sk = timed("8", phase_soak)
     mc = timed("9", phase_multichip)
+    m5 = timed("11", phase_md5)
+    kern["flac_md5"] = dict(max_abs_err=0, plain_ms=None, library_ms=None,
+                            **{k: m5[k] for k in (
+                                "ms", "bound_ms", "bound_by", "shape",
+                                "enqueue_ms", "attributes")})
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
              "bench": bn["launches"], "soak": sk["launches"],
-             "multichip": mc["launches"]}
+             "multichip": mc["launches"], "md5": m5["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -2723,7 +2920,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

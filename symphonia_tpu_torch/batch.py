@@ -71,6 +71,23 @@ class DecodedAudio:
     md5_ok: Optional[bool] = None
 
 
+_NO_MD5 = b"\x00" * 16
+
+# Where a merged FLAC group's MD5 is computed: on the card (F3, one chain
+# a stream, all streams at once) where hashing its streams one after
+# another on the host would take longer than the card's longest chain,
+# that is where sum(bytes) > MD5_HOST_PER_CHAIN * max(bytes). The ratio is
+# the host's rate over the whole MD5 path (_flac_md5_ok) over one F3
+# chain's rate, both measured by chip_smoke.py's phase 11: 352-408 MB/s
+# over the FLAC bulk cell's 128 streams against 98.8-99.0 MB/s, 3.6-4.1
+# (an H100 80GB HBM3 and its host; PERF.md).
+MD5_HOST_PER_CHAIN = 4.0
+
+
+def _md5_on_card(nbytes: Sequence[int]) -> bool:
+    return bool(nbytes) and sum(nbytes) > MD5_HOST_PER_CHAIN * max(nbytes)
+
+
 def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
     """STREAMINFO MD5 verification; None when the stream carries no MD5
     (the all-zero sentinel)."""
@@ -82,6 +99,14 @@ def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
         return hashlib.md5(
             md5_bytes_of(samples.astype(np.int64), si.bits_per_sample)
         ).digest() == si.md5
+
+
+def _verify_host(samples: np.ndarray, si) -> Optional[bool]:
+    """:func:`_flac_md5_ok`, each stream it verifies counted as
+    ``md5_host_streams``."""
+    if si.md5 != _NO_MD5:
+        trace.count("md5_host_streams", 1)
+    return _flac_md5_ok(samples, si)
 
 
 def _gapless_trim(pcm: np.ndarray, track, gapless: bool) -> np.ndarray:
@@ -179,7 +204,7 @@ class FlacBatchDecoder:
             # lanes; the reference decodes them on the host, exactly.
             out = _host_decode(data, gapless=True)
             if self.verify:
-                out.md5_ok = _flac_md5_ok(out.samples, si)
+                out.md5_ok = _verify_host(out.samples, si)
             return out
         if _extracted is None:
             with trace.span("extract"):
@@ -221,12 +246,14 @@ class FlacBatchDecoder:
                 pcm = np.concatenate(outs, axis=1)
         if si.n_samples:
             pcm = pcm[:, : si.n_samples]
-        md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
+        md5_ok = _verify_host(pcm, si) if self.verify else None
         return DecodedAudio(pcm, si.sample_rate, si.bits_per_sample, md5_ok)
 
-    def _decode_packed_chunked(self, packed, blocks: np.ndarray) -> np.ndarray:
+    def _decode_packed_chunked(self, packed, blocks: np.ndarray,
+                               md5=None) -> np.ndarray:
         """Dense stage over native-packed tensors in lane chunks, then
-        stitch the per-frame outputs."""
+        stitch the per-frame outputs; ``md5`` (a ``flac_dense.LaneMd5``)
+        hashes each chunk's output on the device."""
         F, C, n_max = int(packed["F"]), int(packed["C"]), int(packed["n_max"])
         frames_per_chunk = max(1, self.lane_chunk // C)
         outs = []
@@ -240,7 +267,9 @@ class FlacBatchDecoder:
                             for k in ("order", "shift", "wasted")})
                 sub.update(assign=np.asarray(packed["assign"])[i:j],
                            F=j - i, C=C, n_max=n_max)
-            out = flac_dense.decode_packed(sub, self.device)
+                if md5 is not None:
+                    sub["md5_table"] = md5.table(i, j)
+            out = flac_dense.decode_packed(sub, self.device, md5)
             with trace.span("stitch"):
                 for k in range(j - i):
                     outs.append(out[k, :, : int(blocks[i + k])])
@@ -295,7 +324,9 @@ class FlacBatchDecoder:
 
     def _dispatch_merged(self, C: int, group, results) -> None:
         """One merged dense pass over every stream with channel count C,
-        then split, trim and verify per stream."""
+        then split, trim and verify per stream: on the card (F3) where
+        :func:`_md5_on_card` says so for the streams that carry an MD5,
+        else on the host."""
         with trace.span("pack"):
             n_max = max(int(p["n_max"]) for _, _, p, _ in group)
             parts = {k: [] for k in ("res", "coefs", "order", "shift",
@@ -316,22 +347,50 @@ class FlacBatchDecoder:
                     parts[k].append(np.asarray(p[k]).reshape(F * C))
                 parts["assign"].append(np.asarray(p["assign"])[:F])
                 blocks_l.append(np.asarray(blocks))
-                spans.append((idx, si, int(np.asarray(blocks).sum())))
+                spans.append((idx, si, int(np.asarray(blocks).sum()),
+                              total_f, F))
                 total_f += F
             merged = {k: np.concatenate(v) for k, v in parts.items()}
             merged.update(F=total_f, C=C, n_max=n_max)
             blocks_all = np.concatenate(blocks_l)
-        pcm_all = self._decode_packed_chunked(merged, blocks_all)
+            md5, on_card = self._card_md5(C, spans, blocks_all)
+        pcm_all = self._decode_packed_chunked(merged, blocks_all, md5)
         with trace.span("stitch"):
             pos = 0
-            for idx, si, n in spans:
+            for k, (idx, si, n, _, _) in enumerate(spans):
                 pcm = pcm_all[:, pos : pos + n]
                 pos += n
                 if si.n_samples:
                     pcm = pcm[:, : si.n_samples]
-                md5_ok = _flac_md5_ok(pcm, si) if self.verify else None
+                md5_ok = (_verify_host(pcm, si)
+                          if self.verify and k not in on_card else None)
                 results[idx] = DecodedAudio(pcm, si.sample_rate,
                                             si.bits_per_sample, md5_ok)
+        if md5 is not None:
+            with trace.span("verify"):
+                for k, digest in zip(on_card, md5.digests()):
+                    out = results[spans[k][0]]
+                    out.md5_ok = digest == spans[k][1].md5
+                trace.count("md5_card_streams", len(on_card))
+
+    def _card_md5(self, C: int, spans, blocks_all):
+        """(``flac_dense.LaneMd5`` | None, the indices into ``spans`` of
+        the streams it hashes): the streams with an MD5 and a frame, when
+        the group verifies and :func:`_md5_on_card` takes their bytes."""
+        if not self.verify:
+            return None, []
+        ks, n_hash, width = [], [], []
+        for k, (_, si, n, _, F) in enumerate(spans):
+            if si.md5 != _NO_MD5 and F > 0:
+                ks.append(k)
+                n_hash.append(min(n, si.n_samples) if si.n_samples else n)
+                width.append((si.bits_per_sample + 7) // 8)
+        if not _md5_on_card([h * C * w for h, w in zip(n_hash, width)]):
+            return None, []
+        md5 = flac_dense.LaneMd5([spans[k][3] for k in ks],
+                                 [spans[k][4] for k in ks], n_hash, width,
+                                 blocks_all, self.device)
+        return md5, ks
 
 
 class Mp3BatchDecoder:

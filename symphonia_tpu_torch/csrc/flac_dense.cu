@@ -1,4 +1,4 @@
-// FLAC dense stage for Hopper (sm_90a): kernels F1 and F2.
+// FLAC dense stage for Hopper (sm_90a): kernels F1, F2 and F3.
 //
 // F1 flac_lpc replaces symphonia_tpu/ops/flac_dense.py:44
 // lpc_reconstruct_batch and :71 apply_wasted_bits, and does the job of the
@@ -65,6 +65,35 @@
 // thread per sample pair, coalesced along n, wrapping uint32 arithmetic.
 // F2 stays a separate kernel: F1 takes lanes in the order of their tap
 // counts, so the two channel lanes of a frame meet in no one warp.
+//
+// F3 flac_md5 replaces no kernel of symphonia_tpu: the JAX package hashes
+// on the host (batch._flac_md5_ok), as the port does for a single stream.
+// It computes STREAMINFO's MD5 of each stream of a merged dispatch from
+// the decoded lanes x [F, C, n_max] int32 (F1's or F2's output, still on
+// the card): the bytes md5_bytes_of builds, channels interleaved, each
+// sample little-endian at 1 to 4 bytes, across frame boundaries that need
+// not fall on 64-byte blocks, the first n_hash samples of the stream's
+// frames. What bounds it: MD5 is one serial chain a stream, 64 steps a
+// 64-byte block, each waiting on the one before through three dependent
+// operations as compiled (LOP3 for F, G, H or I; IADD3 of a, m[g] + k and
+// that; LEA.HI, the rotate and the add of b in one), so the longest
+// stream's blocks x 64 x one step's latency (measured by md5_chain_kernel
+// below); bytes (4 read a sample) take a two-hundredth of that. Design:
+// - One warp a stream. The warp loads a round of 256 samples coalesced
+//   along n, narrows them and writes their bytes into a 2 KB ring in
+//   shared memory; the loads of the next round are issued before the
+//   current round's blocks are compressed, so their latency hides under
+//   the chain.
+// - Before the chain runs, the lanes write each whole block's 64 values
+//   m[g] + k to shared memory (two a lane), and the chain reads them as
+//   16-byte loads. With m[g] and k apart the compiler added k after F, a
+//   fourth operation on the chain (10.76 ms against 8.77 at the FLAC bulk
+//   cell's shape; PERF.md).
+// - Resumable across lane chunks: each stream's state (a, b, c, d, the
+//   length, the <= 63 bytes past the last whole block) lives in a device
+//   row that the next chunk's launch resumes; the launch that holds the
+//   stream's last frame pads and finalizes it, and the digest replaces
+//   a, b, c, d. Only the digests go back to the host.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -459,6 +488,296 @@ __global__ void flac_decorrelate_kernel(const int32_t* __restrict__ x,
   }
 }
 
+// F3 flac_md5. A stream's table row: frame0 (its first frame in this
+// chunk), frames (0: not in this chunk), n_hash (samples still to hash in
+// this chunk), width (bytes a sample, 1 to 4), flags (kMd5First: start
+// from MD5's initial state; kMd5Last: pad and finalize), three unused.
+// Its state row: a, b, c, d (the digest, once finalized), the message
+// length in bytes (low, high word), two unused, then the 16 words of the
+// block that the last <= 63 bytes begin.
+constexpr int kMd5Row = 8;
+constexpr int kMd5StateWords = 24;
+constexpr int kMd5First = 1;
+constexpr int kMd5Last = 2;
+constexpr int kMd5Per = 8;                 // samples a lane loads a round
+constexpr int kMd5Round = 32 * kMd5Per;    // samples a round
+constexpr int kMd5Ring = 2048;             // bytes: 63 pending + 4 x 256
+constexpr int kMd5Blocks = 16;             // most whole blocks a round
+
+// RFC 1321: each step's constant and message word.
+__constant__ uint32_t kMd5K[64] = {
+    0xd76aa478u, 0xe8c7b756u, 0x242070dbu, 0xc1bdceeeu,
+    0xf57c0fafu, 0x4787c62au, 0xa8304613u, 0xfd469501u,
+    0x698098d8u, 0x8b44f7afu, 0xffff5bb1u, 0x895cd7beu,
+    0x6b901122u, 0xfd987193u, 0xa679438eu, 0x49b40821u,
+    0xf61e2562u, 0xc040b340u, 0x265e5a51u, 0xe9b6c7aau,
+    0xd62f105du, 0x02441453u, 0xd8a1e681u, 0xe7d3fbc8u,
+    0x21e1cde6u, 0xc33707d6u, 0xf4d50d87u, 0x455a14edu,
+    0xa9e3e905u, 0xfcefa3f8u, 0x676f02d9u, 0x8d2a4c8au,
+    0xfffa3942u, 0x8771f681u, 0x6d9d6122u, 0xfde5380cu,
+    0xa4beea44u, 0x4bdecfa9u, 0xf6bb4b60u, 0xbebfbc70u,
+    0x289b7ec6u, 0xeaa127fau, 0xd4ef3085u, 0x04881d05u,
+    0xd9d4d039u, 0xe6db99e5u, 0x1fa27cf8u, 0xc4ac5665u,
+    0xf4292244u, 0x432aff97u, 0xab9423a7u, 0xfc93a039u,
+    0x655b59c3u, 0x8f0ccc92u, 0xffeff47du, 0x85845dd1u,
+    0x6fa87e4fu, 0xfe2ce6e0u, 0xa3014314u, 0x4e0811a1u,
+    0xf7537e82u, 0xbd3af235u, 0x2ad7d2bbu, 0xeb86d391u};
+__constant__ int kMd5G[64] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
+    1, 6, 11, 0, 5, 10, 15, 4, 9, 14, 3, 8, 13, 2, 7, 12,
+    5, 8, 11, 14, 1, 4, 7, 10, 13, 0, 3, 6, 9, 12, 15, 2,
+    0, 7, 14, 5, 12, 3, 10, 1, 8, 15, 6, 13, 4, 11, 2, 9};
+
+// RFC 1321's four functions; each compiles to one LOP3.
+__device__ __forceinline__ uint32_t md5_F(uint32_t b, uint32_t c, uint32_t d) {
+  return d ^ (b & (c ^ d));
+}
+__device__ __forceinline__ uint32_t md5_G(uint32_t b, uint32_t c, uint32_t d) {
+  return c ^ (d & (b ^ c));
+}
+__device__ __forceinline__ uint32_t md5_H(uint32_t b, uint32_t c, uint32_t d) {
+  return b ^ c ^ d;
+}
+__device__ __forceinline__ uint32_t md5_I(uint32_t b, uint32_t c, uint32_t d) {
+  return c ^ (b | ~d);
+}
+
+// One step of RFC 1321 with mk[i] = m[g] + k from shared memory: a + mk[i]
+// + F(b, c, d) is one 3-input add, and the rotate and the add of b
+// compile to one LEA.HI.
+#define MD5_STEP(fn, a, b, c, d, i, s)                  \
+  {                                                     \
+    const uint32_t u_ = a + mk[i] + md5_##fn(b, c, d);  \
+    a = __funnelshift_l(u_, u_, s) + b;                 \
+  }
+
+// h = MD5 compression of h by one block, given as mk[i] = m[g(i)] + k[i]
+// for its 64 steps (16-byte aligned, shared memory), every lane alike.
+__device__ __forceinline__ void md5_block(uint32_t (&h)[4],
+                                          const uint32_t* w) {
+  uint32_t mk[64];
+  const uint4* q = reinterpret_cast<const uint4*>(w);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const uint4 v = q[k];
+    mk[4 * k] = v.x;
+    mk[4 * k + 1] = v.y;
+    mk[4 * k + 2] = v.z;
+    mk[4 * k + 3] = v.w;
+  }
+  uint32_t a = h[0], b = h[1], c = h[2], d = h[3];
+  MD5_STEP(F, a, b, c, d, 0, 7);
+  MD5_STEP(F, d, a, b, c, 1, 12);
+  MD5_STEP(F, c, d, a, b, 2, 17);
+  MD5_STEP(F, b, c, d, a, 3, 22);
+  MD5_STEP(F, a, b, c, d, 4, 7);
+  MD5_STEP(F, d, a, b, c, 5, 12);
+  MD5_STEP(F, c, d, a, b, 6, 17);
+  MD5_STEP(F, b, c, d, a, 7, 22);
+  MD5_STEP(F, a, b, c, d, 8, 7);
+  MD5_STEP(F, d, a, b, c, 9, 12);
+  MD5_STEP(F, c, d, a, b, 10, 17);
+  MD5_STEP(F, b, c, d, a, 11, 22);
+  MD5_STEP(F, a, b, c, d, 12, 7);
+  MD5_STEP(F, d, a, b, c, 13, 12);
+  MD5_STEP(F, c, d, a, b, 14, 17);
+  MD5_STEP(F, b, c, d, a, 15, 22);
+  MD5_STEP(G, a, b, c, d, 16, 5);
+  MD5_STEP(G, d, a, b, c, 17, 9);
+  MD5_STEP(G, c, d, a, b, 18, 14);
+  MD5_STEP(G, b, c, d, a, 19, 20);
+  MD5_STEP(G, a, b, c, d, 20, 5);
+  MD5_STEP(G, d, a, b, c, 21, 9);
+  MD5_STEP(G, c, d, a, b, 22, 14);
+  MD5_STEP(G, b, c, d, a, 23, 20);
+  MD5_STEP(G, a, b, c, d, 24, 5);
+  MD5_STEP(G, d, a, b, c, 25, 9);
+  MD5_STEP(G, c, d, a, b, 26, 14);
+  MD5_STEP(G, b, c, d, a, 27, 20);
+  MD5_STEP(G, a, b, c, d, 28, 5);
+  MD5_STEP(G, d, a, b, c, 29, 9);
+  MD5_STEP(G, c, d, a, b, 30, 14);
+  MD5_STEP(G, b, c, d, a, 31, 20);
+  MD5_STEP(H, a, b, c, d, 32, 4);
+  MD5_STEP(H, d, a, b, c, 33, 11);
+  MD5_STEP(H, c, d, a, b, 34, 16);
+  MD5_STEP(H, b, c, d, a, 35, 23);
+  MD5_STEP(H, a, b, c, d, 36, 4);
+  MD5_STEP(H, d, a, b, c, 37, 11);
+  MD5_STEP(H, c, d, a, b, 38, 16);
+  MD5_STEP(H, b, c, d, a, 39, 23);
+  MD5_STEP(H, a, b, c, d, 40, 4);
+  MD5_STEP(H, d, a, b, c, 41, 11);
+  MD5_STEP(H, c, d, a, b, 42, 16);
+  MD5_STEP(H, b, c, d, a, 43, 23);
+  MD5_STEP(H, a, b, c, d, 44, 4);
+  MD5_STEP(H, d, a, b, c, 45, 11);
+  MD5_STEP(H, c, d, a, b, 46, 16);
+  MD5_STEP(H, b, c, d, a, 47, 23);
+  MD5_STEP(I, a, b, c, d, 48, 6);
+  MD5_STEP(I, d, a, b, c, 49, 10);
+  MD5_STEP(I, c, d, a, b, 50, 15);
+  MD5_STEP(I, b, c, d, a, 51, 21);
+  MD5_STEP(I, a, b, c, d, 52, 6);
+  MD5_STEP(I, d, a, b, c, 53, 10);
+  MD5_STEP(I, c, d, a, b, 54, 15);
+  MD5_STEP(I, b, c, d, a, 55, 21);
+  MD5_STEP(I, a, b, c, d, 56, 6);
+  MD5_STEP(I, d, a, b, c, 57, 10);
+  MD5_STEP(I, c, d, a, b, 58, 15);
+  MD5_STEP(I, b, c, d, a, 59, 21);
+  MD5_STEP(I, a, b, c, d, 60, 6);
+  MD5_STEP(I, d, a, b, c, 61, 10);
+  MD5_STEP(I, c, d, a, b, 62, 15);
+  MD5_STEP(I, b, c, d, a, 63, 21);
+  h[0] += a;
+  h[1] += b;
+  h[2] += c;
+  h[3] += d;
+}
+
+__global__ void __launch_bounds__(32)
+flac_md5_kernel(const int32_t* __restrict__ x,
+                const int32_t* __restrict__ table,
+                const int32_t* __restrict__ blocks,
+                uint32_t* __restrict__ state, int F, int C, int n_max) {
+  __shared__ __align__(16) uint32_t ring[kMd5Ring / 4];
+  __shared__ __align__(16) uint32_t mk[kMd5Blocks][64];
+  uint8_t* ring8 = reinterpret_cast<uint8_t*>(ring);
+  const int lane = threadIdx.x;
+  // Lane l schedules steps l and l + 32 of every block: m[g] + k.
+  const int g0 = kMd5G[lane], g1 = kMd5G[lane + 32];
+  const uint32_t k0 = kMd5K[lane], k1 = kMd5K[lane + 32];
+  const int32_t* row = table + static_cast<int64_t>(blockIdx.x) * kMd5Row;
+  const int frame0 = row[0];
+  const int frames = row[1];
+  int left = row[2];
+  const int w = row[3];
+  const int flags = row[4];
+  if (frames <= 0) return;
+  uint32_t* st = state + static_cast<int64_t>(blockIdx.x) * kMd5StateWords;
+  uint32_t h[4];
+  uint64_t pos = 0;  // message bytes so far
+  if (flags & kMd5First) {
+    h[0] = 0x67452301u;
+    h[1] = 0xefcdab89u;
+    h[2] = 0x98badcfeu;
+    h[3] = 0x10325476u;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = st[k];
+    pos = st[4] | static_cast<uint64_t>(st[5]) << 32;
+    if (lane < 16)
+      ring[((pos & ~63ull) & (kMd5Ring - 1)) / 4 + lane] = st[8 + lane];
+  }
+  uint64_t done = pos & ~63ull;  // bytes compressed
+  __syncwarp();
+
+  // The rounds: up to kMd5Round samples (channel-interleaved) of one
+  // frame, the frames in turn, each frame's block cut to what is left.
+  const int fend = min(frame0 + frames, F);
+  int f = frame0 - 1, e = 0, E = 0;
+  auto next = [&](int& rf, int& re, int& rn) {
+    while (e >= E && f < fend) {
+      if (++f < fend) {
+        const int n = min(blocks[f], left);
+        left -= n;
+        E = n * C;
+        e = 0;
+      }
+    }
+    rf = f;
+    re = e;
+    rn = f < fend ? min(kMd5Round, E - e) : 0;
+    e += rn;
+  };
+  // The next n whole blocks of the ring, from byte `done`, as m[g] + k.
+  auto schedule = [&](int n) {
+    for (int b = 0; b < n; ++b) {
+      const uint32_t* blk = ring + ((done + 64 * b) & (kMd5Ring - 1)) / 4;
+      mk[b][lane] = blk[g0] + k0;
+      mk[b][lane + 32] = blk[g1] + k1;
+    }
+    __syncwarp();
+  };
+  auto load = [&](int rf, int re, int rn, int32_t (&v)[kMd5Per]) {
+#pragma unroll
+    for (int q = 0; q < kMd5Per; ++q) {
+      const int i = q * 32 + lane;
+      v[q] = 0;
+      if (i < rn) {
+        const int el = re + i;
+        const int s = el / C;
+        const int c = el - s * C;
+        v[q] = __ldg(x + (static_cast<int64_t>(rf) * C + c) * n_max + s);
+      }
+    }
+  };
+
+  int rf, re, rn;
+  int32_t v[kMd5Per];
+  next(rf, re, rn);
+  load(rf, re, rn, v);
+  while (rn > 0) {
+#pragma unroll
+    for (int q = 0; q < kMd5Per; ++q) {
+      const int i = q * 32 + lane;
+      if (i < rn) {
+        const uint64_t p = pos + static_cast<uint64_t>(i) * w;
+        const uint32_t u = static_cast<uint32_t>(v[q]);
+        for (int b = 0; b < w; ++b)
+          ring8[(p + b) & (kMd5Ring - 1)] = static_cast<uint8_t>(u >> (8 * b));
+      }
+    }
+    pos += static_cast<uint64_t>(rn) * w;
+    __syncwarp();
+    next(rf, re, rn);
+    load(rf, re, rn, v);  // in flight while the chain runs
+    const int n = static_cast<int>((pos - done) / 64);
+    schedule(n);
+    for (int b = 0; b < n; ++b) md5_block(h, mk[b]);
+    done += 64 * static_cast<uint64_t>(n);
+    __syncwarp();
+  }
+
+  if (flags & kMd5Last) {
+    // Padding: 0x80, zeros to 56 mod 64, the length in bits (64-bit LE).
+    const int r = static_cast<int>(pos - done);
+    const int nb = r < 56 ? 1 : 2;
+    const uint64_t bits = pos * 8;
+    for (int i = r + lane; i < 64 * nb; i += 32) {
+      const int k = i - (64 * nb - 8);
+      const uint8_t byte = i == r ? 0x80
+                           : k >= 0 ? static_cast<uint8_t>(bits >> (8 * k))
+                                    : 0;
+      ring8[(done + i) & (kMd5Ring - 1)] = byte;
+    }
+    __syncwarp();
+    schedule(nb);
+    for (int b = 0; b < nb; ++b) md5_block(h, mk[b]);
+    if (lane < 4) st[lane] = h[lane];
+  } else {
+    if (lane < 4) st[lane] = h[lane];
+    if (lane == 4) st[4] = static_cast<uint32_t>(pos);
+    if (lane == 5) st[5] = static_cast<uint32_t>(pos >> 32);
+    if (lane < 16) st[8 + lane] = ring[(done & (kMd5Ring - 1)) / 4 + lane];
+  }
+}
+
+// The latency of one step of the chain, measured: one thread runs iters
+// steps of an MD5 step's chain shape (LOP3, add, rotate and add: three
+// dependent operations as compiled), each on the result of the one before.
+__global__ void md5_chain_kernel(uint32_t* out, uint32_t c, uint32_t d,
+                                 uint32_t k, int iters) {
+  uint32_t b = out[0];
+#pragma unroll 16
+  for (int it = 0; it < iters; ++it) {
+    const uint32_t u = md5_F(b, c, d) + k;
+    b = __funnelshift_l(u, u, 7) + b;
+  }
+  out[0] = b;
+}
+
 template <class Kernel>
 int kernel_attributes(Kernel kernel, int threads, int* out) {
   cudaFuncAttributes a;
@@ -568,5 +887,36 @@ extern "C" int flac_decorrelate_launch(const void* x, const void* assign,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(assign),
       static_cast<int32_t*>(out), F, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// table [S, 8] and state [S, 24] int32 (see flac_md5_kernel), blocks [F]:
+// each frame's block size; x [F, C, n_max] int32. One warp a stream.
+extern "C" int flac_md5_launch(const void* x, const void* table,
+                               const void* blocks, void* state, int64_t S,
+                               int64_t F, int C, int n_max, void* stream) {
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  if (S > 0x7fffffff || F > 0x7fffffff || C <= 0 || n_max <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flac_md5_kernel<<<static_cast<unsigned>(S), 32, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(table),
+      static_cast<const int32_t*>(blocks), static_cast<uint32_t*>(state),
+      static_cast<int>(F), C, n_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[0..2] as flac_lpc_attributes, of F3.
+extern "C" int flac_md5_attributes(int* out) {
+  return kernel_attributes(flac_md5_kernel, 32, out);
+}
+
+// One thread, iters steps; out [1] uint32 seeds and takes the chain's
+// end.
+extern "C" int flac_md5_chain_launch(void* out, int iters, void* stream) {
+  if (iters <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  md5_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), 0x98badcfeu, 0x10325476u, 0xd76aa478u,
+      iters);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,7 +35,8 @@ BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid", "mp3_synth",
+KERNELS = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "flac_md5",
+           "mp3_hybrid", "mp3_synth",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
            "mpa_l12_synth", "vorbis_lap", "pcm_unpack", "rice_decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -59,6 +60,10 @@ _SIGNATURES = {
     "flac_imad_rate_launch": [_P, _I, _I, _P],
     # x, assign, out, F, n, stream
     "flac_decorrelate_launch": [_P, _P, _P, _I64, _I, _P],
+    # x, table, blocks, state, S, F, C, n_max, stream
+    "flac_md5_launch": [_P] * 4 + [_I64, _I64, _I, _I, _P],
+    # out, iters, stream (a dependent operation's latency, measured)
+    "flac_md5_chain_launch": [_P, _I, _P],
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
     # run, stream
     "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _I, _P],

@@ -1,4 +1,5 @@
-"""FLAC dense stage: batched predictor reconstruction + stereo decorrelation.
+"""FLAC dense stage: batched predictor reconstruction, stereo decorrelation,
+and STREAMINFO's MD5 of the decoded lanes.
 
 PyTorch port of ``symphonia_tpu/ops/flac_dense.py``. Every subframe kind is
 one integer-LPC recurrence per lane (constant/verbatim are order 0, fixed
@@ -16,13 +17,17 @@ Each public op is a wrapper: on CPU tensors it runs the plain PyTorch twin
 here, on CUDA tensors it launches the hand-written kernel
 (``csrc/flac_dense.cu``: F1 ``flac_lpc`` fuses the recurrence and the
 wasted-bits shift, behind its helper ``flac_lane_order``, which counts each
-lane's taps and sorts the lanes by them; F2 ``flac_decorrelate``) or
-raises. The 64-bit
+lane's taps and sorts the lanes by them; F2 ``flac_decorrelate``; F3
+``flac_md5``, one MD5 chain a stream over the lanes F1 and F2 wrote, which
+the JAX package computes on the host instead) or raises. The 64-bit
 accumulator is native int64 on both (the reference's 32-bit-limb
 emulation, ``ops/i64emu.py``, existed only because the TPU has no int64).
 """
 
 from __future__ import annotations
+
+import math
+from typing import List
 
 import numpy as np
 import torch
@@ -110,6 +115,119 @@ def decorrelate_plain(x: torch.Tensor, assignment: torch.Tensor
     out1 = torch.where(a == ASSIGN_LEFT_SIDE, ls1,
                        torch.where(a == ASSIGN_MID_SIDE, ms1, x1))
     return torch.stack([out0, out1], dim=1)
+
+
+# F3's table and state (csrc/flac_dense.cu, flac_md5_kernel): a stream's
+# table row is (first frame in the chunk, frames in the chunk, samples
+# still to hash in the chunk, bytes a sample, flags, 0, 0, 0); its state
+# row is (a, b, c, d, message bytes low and high word, 0, 0, then the 16
+# words of the block that the bytes past the last whole block begin).
+MD5_ROW = 8
+MD5_STATE_WORDS = 24
+MD5_FIRST = 1  # start from MD5's initial state
+MD5_LAST = 2   # pad and finalize: a, b, c, d become the digest
+_MD5_INIT = (0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476)
+# RFC 1321: the constants, rotations and message word of each step.
+MD5_K = tuple(int(abs(math.sin(i + 1)) * 2**32) & 0xFFFFFFFF
+              for i in range(64))
+MD5_S = ((7, 12, 17, 22) * 4 + (5, 9, 14, 20) * 4 + (4, 11, 16, 23) * 4
+         + (6, 10, 15, 21) * 4)
+MD5_G = tuple(i if i < 16 else (5 * i + 1) % 16 if i < 32
+              else (3 * i + 5) % 16 if i < 48 else 7 * i % 16
+              for i in range(64))
+_M32 = 0xFFFFFFFF
+
+
+def _md5_compress(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """MD5's compression of states h [S, 4] by blocks m [S, 16] (int64
+    holding uint32 values), all streams at once."""
+    a, b, c, d = h.unbind(1)
+    for i in range(64):
+        if i < 16:
+            f = d ^ (b & (c ^ d))
+        elif i < 32:
+            f = c ^ (d & (b ^ c))
+        elif i < 48:
+            f = b ^ c ^ d
+        else:
+            f = c ^ (b | (~d & _M32))
+        t = (a + f + MD5_K[i] + m[:, MD5_G[i]]) & _M32
+        s = MD5_S[i]
+        a, d, c = d, c, b
+        b = (b + (((t << s) | (t >> (32 - s))) & _M32)) & _M32
+    return (h + torch.stack([a, b, c, d], 1)) & _M32
+
+
+def _le_bytes(v: torch.Tensor, width: int) -> torch.Tensor:
+    """Each int32 of ``v`` [n] as ``width`` little-endian bytes -> uint8."""
+    v = v.to(torch.int64)
+    return torch.stack([(v >> (8 * k)) & 0xFF for k in range(width)],
+                       1).reshape(-1).to(torch.uint8)
+
+
+def md5_lanes_plain(x: torch.Tensor, table: torch.Tensor,
+                    blocks: torch.Tensor, state: torch.Tensor) -> None:
+    """Twin of F3: each stream's bytes of this chunk in the kernel's
+    order (its frames in turn, each cut to the samples left, channels
+    interleaved, ``width`` little-endian bytes a sample) after the bytes
+    its state holds, padded where the row says last; the whole blocks
+    compressed for all streams at once; ``state`` updated in place."""
+    F = x.shape[0]
+    rows = table.tolist()
+    bl = blocks.tolist()
+    live, msgs, heads, ends = [], [], [], []
+    for k, (f0, nf, left, w, flags, *_) in enumerate(rows):
+        if nf <= 0:
+            continue
+        if flags & MD5_FIRST:
+            h, pos = torch.tensor(_MD5_INIT), 0
+            parts = []
+        else:
+            st = state[k].to(torch.int64) & _M32
+            h, pos = st[:4], int(st[4]) | int(st[5]) << 32
+            parts = [_le_bytes(state[k, 8:], 4)[: pos % 64]]
+        for f in range(f0, min(f0 + nf, F)):
+            n = min(bl[f], left)
+            left -= n
+            parts.append(_le_bytes(x[f, :, :n].T.reshape(-1), w))
+            pos += n * x.shape[1] * w
+        msg = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8)
+        if flags & MD5_LAST:
+            pad = (55 - pos) % 64
+            tail = bytes([0x80]) + bytes(pad) + (8 * pos).to_bytes(8, "little")
+            msg = torch.cat([msg, torch.frombuffer(bytearray(tail),
+                                                   dtype=torch.uint8)])
+        live.append(k)
+        msgs.append(msg)
+        heads.append(h)
+        ends.append((pos, flags))
+    if not live:
+        return
+    nb = [m.numel() // 64 for m in msgs]
+    B = max(nb)
+    words = torch.zeros((len(live), max(B, 1), 16), dtype=torch.int64)
+    for r, m in enumerate(msgs):
+        q = m[: 64 * nb[r]].to(torch.int64).reshape(-1, 4)
+        words[r, : nb[r]] = (q[:, 0] | q[:, 1] << 8 | q[:, 2] << 16
+                             | q[:, 3] << 24).reshape(-1, 16)
+    h = torch.stack(heads)
+    nbt = torch.tensor(nb)
+    for j in range(B):
+        h = torch.where((j < nbt)[:, None], _md5_compress(h, words[:, j]), h)
+    for r, k in enumerate(live):
+        pos, flags = ends[r]
+        out = torch.zeros(MD5_STATE_WORDS, dtype=torch.int64)
+        out[:4] = h[r]
+        if not flags & MD5_LAST:
+            out[4], out[5] = pos & _M32, pos >> 32
+            rest = msgs[r][64 * nb[r]:]
+            ring = torch.zeros(64, dtype=torch.int64)
+            ring[: rest.numel()] = rest.to(torch.int64)
+            q = ring.reshape(16, 4)
+            out[8:] = q[:, 0] | q[:, 1] << 8 | q[:, 2] << 16 | q[:, 3] << 24
+        else:
+            out[4:] = state[k, 4:].to(torch.int64) & _M32
+        state[k] = _wrap_i32(out)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +356,92 @@ def decorrelate_batch(x: torch.Tensor, assignment: torch.Tensor
     return out
 
 
+def md5_lanes(x: torch.Tensor, table: torch.Tensor, blocks: torch.Tensor,
+              state: torch.Tensor) -> None:
+    """F3: advance each stream's MD5 ``state`` [S, 24] int32 over its
+    samples in the decoded lanes ``x`` [F, C, n_max] int32, as its row of
+    ``table`` [S, 8] int32 says (:data:`MD5_ROW`); ``blocks`` [F] int32
+    holds each frame's block size. A row flagged :data:`MD5_LAST` leaves
+    the stream's digest in its state's first four words. In place, on
+    ``state``'s device."""
+    S = state.shape[0] if state.dim() == 2 else -1
+    if (x.dim() != 3 or x.dtype != torch.int32
+            or table.shape != (S, MD5_ROW) or table.dtype != torch.int32
+            or blocks.shape != (x.shape[0],) or blocks.dtype != torch.int32
+            or state.shape != (S, MD5_STATE_WORDS)
+            or state.dtype != torch.int32):
+        raise ValueError("x int32 [F, C, n], table int32 [S, 8], blocks "
+                         "int32 [F], state int32 [S, 24]")
+    if _build.device_type(x) == "cpu":
+        if any(t.device != x.device for t in (table, blocks, state)):
+            raise ValueError("F3's tensors on different devices")
+        return md5_lanes_plain(x, table, blocks, state)
+    dev = _build.require_cuda(x, table, blocks, state)
+    F, C, n_max = x.shape
+    err = _build.lib().flac_md5_launch(
+        x.data_ptr(), table.data_ptr(), blocks.data_ptr(), state.data_ptr(),
+        S, F, C, n_max, _build.stream_ptr(dev))
+    _build.LAUNCHES["flac_md5"] += 1
+    _build.check("flac_md5", err)
+
+
+class LaneMd5:
+    """The STREAMINFO MD5 of several streams of one merged dispatch,
+    computed by F3 from each lane chunk's output.
+
+    Stream k's frames are ``frames[k]`` consecutive frames of the merged
+    order from ``first[k]``; its message is the first ``n_hash[k]``
+    samples of each channel, ``width[k]`` bytes a sample; ``blocks``
+    holds every merged frame's block size. Each chunk of frames [i, j)
+    sends :meth:`table` up with its lanes, and :meth:`update` queues F3 on
+    the chunk's output; the chunk that holds a stream's last frame
+    finalizes it, and :meth:`digests` brings the digests back."""
+
+    def __init__(self, first, frames, n_hash, width, blocks, device):
+        self.first = np.asarray(first, np.int64)
+        self.end = self.first + np.asarray(frames, np.int64)
+        self.n_hash = np.asarray(n_hash, np.int64)
+        self.width = np.asarray(width, np.int64)
+        if (np.any(self.end <= self.first) or np.any(self.n_hash < 0)
+                or np.any((self.width < 1) | (self.width > 4))):
+            raise ValueError("each stream needs a frame, n_hash >= 0 and "
+                             "1 to 4 bytes a sample")
+        self.blocks = np.asarray(blocks, np.int32)
+        self.cum = np.concatenate([[0], np.cumsum(self.blocks,
+                                                  dtype=np.int64)])
+        self.state = torch.empty((len(self.first), MD5_STATE_WORDS),
+                                 dtype=torch.int32, device=device)
+
+    def table(self, i: int, j: int) -> np.ndarray:
+        """int32 [8 S + j - i]: the streams' rows for the chunk of frames
+        [i, j), then the chunk's block sizes."""
+        first, end, cum = self.first, self.end, self.cum
+        lo, hi = np.clip(first, i, j), np.clip(end, i, j)
+        n_hash = self.n_hash
+        n = (np.minimum(n_hash, cum[hi] - cum[first])
+             - np.minimum(n_hash, cum[lo] - cum[first]))
+        rows = np.zeros((len(first), MD5_ROW), np.int32)
+        rows[:, 0] = lo - i
+        rows[:, 1] = hi - lo
+        rows[:, 2] = n
+        rows[:, 3] = self.width
+        rows[:, 4] = (MD5_FIRST * ((first >= i) & (first < j))
+                      + MD5_LAST * ((end > i) & (end <= j)))
+        return np.concatenate([rows.reshape(-1), self.blocks[i:j]])
+
+    def update(self, x: torch.Tensor, table: torch.Tensor) -> None:
+        """Queue F3 on a chunk's output ``x`` [j - i, C, n_max] with that
+        chunk's :meth:`table`, on its device."""
+        rows = MD5_ROW * len(self.first)
+        md5_lanes(x, table[:rows].view(-1, MD5_ROW), table[rows:],
+                  self.state)
+
+    def digests(self) -> List[bytes]:
+        """Every stream's 16-byte digest, once its last chunk has run."""
+        d = trace.to_host(self.state[:, :4]).astype("<i4")
+        return [r.tobytes() for r in d]
+
+
 # ---------------------------------------------------------------------------
 # Host-side packing (numpy) and the device pipeline
 # ---------------------------------------------------------------------------
@@ -304,14 +508,18 @@ def pack_parsed_frames(frames, n_max: int | None = None):
     }
 
 
-def decode_packed(packed, device) -> np.ndarray:
+def decode_packed(packed, device, md5: LaneMd5 | None = None) -> np.ndarray:
     """Run the dense stage on packed numpy tensors on ``device`` ->
     int32 [F, C, n_max] numpy: every lane array to the device in one
-    ``h2d`` span, the launches, then the result back."""
+    ``h2d`` span, the launches, then the result back. With ``md5``,
+    ``packed["md5_table"]`` (the chunk's :meth:`LaneMd5.table`) goes up
+    with the lanes, and F3 is queued on the lanes once they are back, so
+    that it runs while the host stitches them."""
     n_max = int(packed["n_max"])
     F, C = int(packed["F"]), int(packed["C"])
     keys = ("res", "coefs", "order", "shift", "wasted")
     keys += ("assign",) if C == 2 else ()
+    keys += ("md5_table",) if md5 is not None else ()
     t = dict(zip(keys, trace.to_device(torch.device(device),
                                        *(packed[k] for k in keys))))
     with trace.span("enqueue"):
@@ -320,4 +528,8 @@ def decode_packed(packed, device) -> np.ndarray:
         x = x.reshape(F, C, n_max)
         if C == 2:
             x = decorrelate_batch(x, t["assign"])
-    return trace.to_host(x)
+    out = trace.to_host(x)
+    if md5 is not None:
+        with trace.span("enqueue"):
+            md5.update(x, t["md5_table"])
+    return out

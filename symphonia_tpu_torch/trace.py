@@ -19,7 +19,10 @@ The stored ``perf_counter_ns`` times give durations only.
 Span names: ``decode_many``, ``setup``, ``probe``, ``open`` (facade /
 routing); ``extract`` (host entropy); ``pack``, ``h2d``, ``d2h`` (lane
 packing + copies); ``enqueue`` (dense kernels); ``stitch``, ``verify``
-(stitch / verify). Counters: ``h2d_bytes``, ``d2h_bytes``.
+(stitch / verify). Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing +
+copies); ``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one
+a verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
+card or ``batch._flac_md5_ok`` on the host).
 """
 
 from __future__ import annotations

@@ -404,11 +404,11 @@ def test_build_hash_follows_sources():
 
 @pytest.mark.parametrize("kernel", _build.KERNELS)
 def test_every_kernel_has_a_c_entry_point(kernel):
-    # V2, P1, R1 and F1's helper among them: a counted launch and a declared
-    # signature.
-    assert len(_build.KERNELS) == 13
+    # V2, P1, R1, F1's helper and F3 among them: a counted launch and a
+    # declared signature.
+    assert len(_build.KERNELS) == 14
     assert {"vorbis_lap", "pcm_unpack", "rice_decode",
-            "flac_lane_order"} <= set(_build.KERNELS)
+            "flac_lane_order", "flac_md5"} <= set(_build.KERNELS)
     assert f"{kernel}_launch" in _build._SIGNATURES
     assert any(f"{kernel}_launch(" in s.read_text()
                for s in _build._sources() if s.suffix == ".cu")
@@ -418,6 +418,7 @@ def test_every_kernel_has_a_c_entry_point(kernel):
 # per SM (chip_smoke.py fails a run on a spill), and the source of each.
 _ATTRIBUTE_EXPORTS = {
     "flac_lpc_attributes": "flac_dense.cu",
+    "flac_md5_attributes": "flac_dense.cu",
     "mp3_hybrid_attributes": "mp3_dense.cu",
     "mp3_synth_attributes": "mp3_dense.cu",
     "aac_imdct_attributes": "aac_dense.cu",
@@ -433,12 +434,12 @@ def test_attribute_exports_have_c_entry_points(export):
     # Each is an extern "C" function of its kernel's source, on
     # simt_gemm::attributes or the CUDA runtime's queries, and
     # chip_smoke.py reads it.
-    assert len(_ATTRIBUTE_EXPORTS) == 8
+    assert len(_ATTRIBUTE_EXPORTS) == 9
     src = (_build.CSRC / _ATTRIBUTE_EXPORTS[export]).read_text()
     assert f'extern "C" int {export}(' in src
     smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert f".{export}" in smoke
-    assert len(_build.KERNELS) == 13
+    assert len(_build.KERNELS) == 14
 
 
 def test_launch_errors_raise():
