@@ -88,6 +88,23 @@ def get_codecs() -> CodecRegistry:
     return _CODECS
 
 
+def _scanned(desc):
+    """The MPEG audio descriptor with its reader built in span ``scan``
+    (:mod:`.trace`): building an ``MpaReader`` walks the whole stream's
+    frame table, one header parse a frame."""
+    import dataclasses
+
+    factory = desc.factory
+
+    def make(mss, options=None):
+        from . import trace
+
+        with trace.span("scan"):
+            return factory(mss, options)
+
+    return dataclasses.replace(desc, factory=make)
+
+
 def _register_enabled_formats(probe: Probe) -> None:
     """Register every format reader and metadata reader
     (symphonia/src/lib.rs:234-300 register_enabled_formats)."""
@@ -96,7 +113,8 @@ def _register_enabled_formats(probe: Probe) -> None:
 
     for mod in (wav, aiff, caf, flac, mpa, ogg, adts, isomp4, mkv, id3v2,
                 id3v1):
-        probe.register(mod.DESCRIPTOR)
+        probe.register(_scanned(mpa.DESCRIPTOR) if mod is mpa
+                       else mod.DESCRIPTOR)
     probe.register(ape.DESCRIPTOR)
     probe.register(ape.DESCRIPTOR_BEFORE_ID3V1)
 

@@ -37,7 +37,8 @@ from .core.io import MediaSourceStream
 from .ops import flac_dense
 from .ops.aac_dense import LANE_KEYS, AacDense
 from .ops.aac_dense import reference_tables as aac_tables
-from .ops.mp3_dense import L12Dense, Mp3Dense, l12_tables, reference_tables
+from .ops.mp3_dense import (BLOCK_SHORT, L12Dense, Mp3Dense, l12_tables,
+                             reference_tables)
 from .ops.vorbis_dense import (VorbisDense, decode_packets_dense,
                                decode_packets_dense_multi)
 
@@ -425,7 +426,7 @@ class Mp3BatchDecoder:
         from .core.formats import FormatOptions
         from .formats.mpa import MpaReader
 
-        with trace.span("open"):
+        with trace.span("open"), trace.span("scan"):
             return MpaReader(MediaSourceStream(data),
                              FormatOptions(enable_gapless=self.gapless))
 
@@ -433,7 +434,8 @@ class Mp3BatchDecoder:
     def _extract(reader):
         """Native Layer III extraction, copied out of the pooled buffers:
         (spectra [G, C, 576], bt [G, C], mixed [G, C]) or None when the
-        stream is malformed."""
+        stream is malformed. The frames extracted are counted as
+        ``mp3_frames``."""
         from . import native
 
         ext = native.mp3_extract(reader._buf, reader._offsets, reader._sizes,
@@ -442,14 +444,20 @@ class Mp3BatchDecoder:
             return None
         C = reader.header.n_channels
         G = ext["n_granules"]
+        trace.count("mp3_frames", len(reader._offsets))
         return (np.array(ext["spectra"][:G, :C], copy=True),
                 np.array(ext["bt"][:G, :C], copy=True),
                 np.array(ext["mixed"][:G, :C], copy=True).astype(bool))
 
     def _dense_chunked(self, spectra, bt, mixed, boundary=None) -> np.ndarray:
         """[G, C, 576] spectra -> [G, C, 576] PCM, chunk by chunk with the
-        carried state kept on the device."""
+        carried state kept on the device. Its input's lanes (granule x
+        channel) are counted as ``mp3_lanes``, the short-block ones as
+        ``mp3_short_lanes``."""
         G, C = spectra.shape[:2]
+        if trace.enabled():
+            trace.count("mp3_lanes", G * C)
+            trace.count("mp3_short_lanes", int((bt == BLOCK_SHORT).sum()))
         dev = self.device
         parts = []
         ht = st = None

@@ -17,12 +17,17 @@ is a root of its own. A request is stored when its root closes;
 The stored ``perf_counter_ns`` times give durations only.
 
 Span names: ``decode_many``, ``setup``, ``probe``, ``open`` (facade /
-routing); ``extract`` (host entropy); ``pack``, ``h2d``, ``d2h`` (lane
-packing + copies); ``enqueue`` (dense kernels); ``stitch``, ``verify``
-(stitch / verify). Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing +
-copies); ``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one
-a verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
-card or ``batch._flac_md5_ok`` on the host).
+routing); ``scan`` (demux: an MPEG audio reader built, its frame-table
+walk, in the probe and when the decoder opens the stream); ``extract``
+(host entropy); ``pack``, ``h2d``, ``d2h`` (lane packing + copies);
+``enqueue`` (dense kernels); ``stitch``, ``verify`` (stitch / verify).
+Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing + copies);
+``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one a
+verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
+card or ``batch._flac_md5_ok`` on the host); ``mp3_frames`` (Layer III
+frames extracted), ``mp3_lanes`` and ``mp3_short_lanes`` (the granule x
+channel lanes sent to M1 and M2, and those of short blocks, counted from
+the extraction's output, not from the launches).
 """
 
 from __future__ import annotations
