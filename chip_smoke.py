@@ -144,7 +144,17 @@ Phases (one line each; any failure raises and exits non-zero):
      at the step latency this run measures), its
      registers, spills and launches; the host path (``_flac_md5_ok``) over
      the same 128 streams, one F3 chain alone, and their rates' ratio, the
-     rule's ``MD5_HOST_PER_CHAIN``.
+     rule's ``MD5_HOST_PER_CHAIN``;
+ 12. ``mp3_entropy``: M0 against ``native.mp3_extract`` on a seeded pool
+     of 64 clips of the fma_mp3 configuration (the benchmark's generator)
+     and on the test encoders' streams (``testing/mp3_entropy_streams``:
+     MPEG-1, 2 and 2.5, intensity stereo, CRC, linbits tables, mixed-block
+     flags, a reservoir underflow at the start, flipped bits), each alone
+     and all in one launch: statuses, block types and mixed flags equal,
+     spectra bit for bit; its time at the fma_mp3.shard32 request's shape
+     (32 clips, 36,800 frames) beside its bytes bound and the native
+     extraction of the same clips, its registers, local memory and
+     ptxas's report of its stack and spills.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -236,6 +246,10 @@ KERNEL_INFO = {
     # F3 replaces no device program: the reference hashes on the host.
     "flac_md5": ("cuda", "symphonia_tpu_torch/csrc/flac_dense.cu",
                  "none (symphonia_tpu/batch.py:_flac_md5_ok, host)"),
+    # M0 replaces no device program: the reference extracts Layer III on
+    # the host.
+    "mp3_entropy": ("cuda", "symphonia_tpu_torch/csrc/mp3_entropy.cu",
+                    "none (native/mp3_entropy.cpp sh_mp3_extract, host)"),
     "mp3_hybrid": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
                    "symphonia_tpu/ops/mp3_dense.py:346"),
     "mp3_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
@@ -274,8 +288,8 @@ STEP_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
 # Phase 10's path (decode_many on the golden corpus): every kernel of
 # decode_many but V1, whose entry (house_lo.ogg) may be absent.
 GOLDEN_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate",
-               "mp3_hybrid", "mp3_synth", "aac_imdct", "aac_ola",
-               "mpa_l12_synth")
+               "mp3_entropy", "mp3_hybrid", "mp3_synth", "aac_imdct",
+               "aac_ola", "mpa_l12_synth")
 # Phase 6's full width: FLAC frames, samples, MP3 granules, AAC frames,
 # Vorbis blocks and block size.
 STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
@@ -2820,6 +2834,150 @@ def phase_md5() -> dict:
     return info
 
 
+# M0's checks: a seeded pool of the fma_mp3 configuration's clips (the
+# benchmark's generator), and the request the fma_mp3.shard32 cell sends
+# (its first MP3_ENTROPY_REQUEST clips, 36.8K frames at 30 s a clip).
+MP3_ENTROPY_POOL = 64
+MP3_ENTROPY_REQUEST = 32
+
+
+def _m0_ptxas() -> dict:
+    """ptxas's report of M0 (``-Xptxas -v``): its lines, registers, stack
+    frame and spill bytes."""
+    import re
+    import tempfile
+
+    from symphonia_tpu_torch.ops import _build
+
+    src = _build.CSRC / "mp3_entropy.cu"
+    with tempfile.TemporaryDirectory() as tmp:
+        p = _build._nvcc(_build.find_nvcc(), [
+            "-Xptxas", "-v", "-c", str(src), "-o",
+            os.path.join(tmp, "m0.o")])
+    if p.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v failed:\n{p.stderr}")
+    lines = [ln.strip() for ln in p.stderr.splitlines() if ln.strip()]
+    text = " ".join(lines)
+
+    def grab(pattern):
+        m = re.search(pattern, text)
+        return int(m.group(1)) if m else None
+
+    return dict(lines=lines, registers=grab(r"Used (\d+) registers"),
+                stack_bytes=grab(r"(\d+) bytes (?:cumulative )?stack"),
+                spill_stores=grab(r"(\d+) bytes spill stores"),
+                spill_loads=grab(r"(\d+) bytes spill loads"))
+
+
+def _m0_run(datas, tabs, dev):
+    """M0 over ``datas`` (MPEG audio streams): (plan, readers, inputs on
+    the card, outputs as numpy)."""
+    import torch
+
+    from symphonia_tpu_torch.core.formats import FormatOptions
+    from symphonia_tpu_torch.core.io import MediaSourceStream
+    from symphonia_tpu_torch.formats.mpa import MpaReader
+    from symphonia_tpu_torch.ops import mp3_entropy as me
+
+    rs = [MpaReader(MediaSourceStream(d), FormatOptions(enable_gapless=True))
+          for d in datas]
+    pl = me.plan([r._offsets for r in rs], [r._sizes for r in rs],
+                 [r.header.n_channels for r in rs],
+                 [2 if r.header.is_mpeg1 else 1 for r in rs])
+    inputs = [torch.from_numpy(a).to(dev) for a in (
+        pl.pack([r._buf for r in rs]), pl.frames, pl.clips)]
+    out = me.mp3_entropy(*inputs, tabs, pl.n_lanes)
+    torch.cuda.synchronize()
+    return pl, rs, inputs, [o.cpu().numpy() for o in out]
+
+
+def phase_mp3_entropy() -> dict:
+    """M0 against ``native.mp3_extract``: a seeded pool of the fma_mp3
+    configuration's clips, and the test encoders' streams of every kind
+    (``testing/mp3_entropy_streams.py``: MPEG-2 and 2.5, intensity
+    stereo, CRC, linbits tables, mixed-block flags, a reservoir underflow
+    at the start, flipped bits), each alone and all in one launch:
+    statuses, block types and mixed flags equal, spectra bit-equal (a
+    difference of one unit in the last place counted apart). Then M0's
+    time at the fma_mp3.shard32 request's shape against its bytes bound
+    and the native extraction of the same clips, and ptxas's registers
+    and spills."""
+    import ctypes
+
+    import torch
+
+    from benchmark.gen import mp3 as gen
+    from symphonia_tpu_torch import native
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import mp3_entropy as me
+    from symphonia_tpu_torch.testing import mp3_entropy_streams as ms
+
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    tabs = me.device_tables(dev)
+    cfg = json.loads(open(os.path.join(
+        ROOT, "benchmark", "configs", "fma_mp3.json")).read())
+    t0 = time.perf_counter()
+    pool = [s.data for s in gen.make_pool(cfg, MP3_ENTROPY_POOL, SEED + 21,
+                                          device=dev)]
+    pool_s = time.perf_counter() - t0
+    checks = {}
+    pl, rs, _, out = _m0_run(pool, tabs, dev)
+    checks["fma_pool"] = ms.compare(pl, ms.expected(rs), *out)
+    streams = ms.streams(SEED % 1000)
+    for name, data in streams.items():
+        pl, rs, _, out = _m0_run([data], tabs, dev)
+        checks[name] = ms.compare(pl, ms.expected(rs), *out)
+    pl, rs, _, out = _m0_run(list(streams.values()) + pool[:4], tabs, dev)
+    checks["all_in_one"] = ms.compare(pl, ms.expected(rs), *out)
+    bad = {k: v for k, v in checks.items() if not v["ok"]}
+    for k, v in checks.items():
+        print(f"phase 12 mp3_entropy {k}: {json.dumps(v)}", flush=True)
+    if bad:
+        raise AssertionError(f"mp3_entropy differs from the native "
+                             f"extraction on {sorted(bad)}")
+
+    # The cell's request: time, bound, the native extraction.
+    req = pool[:MP3_ENTROPY_REQUEST]
+    pl, rs, inputs, out = _m0_run(req, tabs, dev)
+    F = pl.frames.shape[0]
+    ms_ = cuda_ms(lambda: me.mp3_entropy(*inputs, tabs, pl.n_lanes), 10)
+    enq = enqueue_ms(lambda: me.mp3_entropy(*inputs, tabs, pl.n_lanes), 10)
+    frame_bytes = int(pl.frames[:, 1].sum())
+    bytes_ms = (frame_bytes + pl.n_lanes * (576 * 4 + 8)) / HBM_BYTES_PER_S \
+        * 1e3
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for r in rs:
+            native.mp3_extract(r._buf, r._offsets, r._sizes,
+                               max_granules=2 * len(r._offsets) + 2)
+        host.append((time.perf_counter() - t0) * 1e3)
+    # Registers, local bytes (M0's per-thread arrays and ptxas's spills,
+    # which ptxas reports apart) and blocks an SM, from the CUDA runtime.
+    # M0 is not held to no spill: ptxas spills ~190 bytes a thread, and
+    # the spill-free build (211 registers, 32-thread blocks, everything
+    # inlined) took 1.5x as long on an H100 (PERF.md).
+    attrs = (ctypes.c_int * 3)()
+    fn = _build.lib().mp3_entropy_attributes
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _build.check("mp3_entropy attributes", fn(attrs))
+    ptx = _m0_ptxas()
+    info = dict(
+        shape=[F, pl.n_lanes], clips=len(req), frame_bytes=frame_bytes,
+        ms=ms_, enqueue_ms=enq, bound_ms=bytes_ms, bound_by="bytes",
+        share_of_bound=bytes_ms / ms_, host_ms=min(host), host_ms_runs=host,
+        host_over_kernel=min(host) / ms_, pool_s=pool_s,
+        checked={k: {f: v[f] for f in ("clips", "frames", "lanes", "values",
+                                       "ulp1")} for k, v in checks.items()},
+        attributes={"mp3_entropy": dict(zip(
+            ("registers", "local_bytes", "blocks_per_sm"), list(attrs)))},
+        ptxas=ptx, launches=dict(_build.LAUNCHES), card=card_line())
+    print("phase 12 mp3_entropy:", json.dumps(info), flush=True)
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -2888,12 +3046,18 @@ def main() -> int:
                             **{k: m5[k] for k in (
                                 "ms", "bound_ms", "bound_by", "shape",
                                 "enqueue_ms", "attributes")})
+    m0 = timed("12", phase_mp3_entropy)
+    kern["mp3_entropy"] = dict(max_abs_err=0, plain_ms=None,
+                               library_ms=None, **{k: m0[k] for k in (
+                                   "ms", "bound_ms", "bound_by", "shape",
+                                   "enqueue_ms", "attributes")})
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
              "bench": bn["launches"], "soak": sk["launches"],
-             "multichip": mc["launches"], "md5": m5["launches"]}
+             "multichip": mc["launches"], "md5": m5["launches"],
+             "mp3_entropy": m0["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -2920,7 +3084,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

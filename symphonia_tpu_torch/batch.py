@@ -394,13 +394,27 @@ class FlacBatchDecoder:
         return md5, ks
 
 
+def _joined(parts: List[torch.Tensor]) -> torch.Tensor:
+    """``parts`` (views of one buffer) as one tensor along dim 0: a view
+    where each starts where the one before ends, else a copy."""
+    a = parts[0]
+    if all(y.data_ptr() == x.data_ptr() + x.nbytes
+           for x, y in zip(parts, parts[1:])):
+        n = sum(p.shape[0] for p in parts)
+        return a.as_strided((n,) + tuple(a.shape[1:]), a.stride())
+    return torch.cat(parts)
+
+
 class Mp3BatchDecoder:
-    """Whole-file MPEG audio decode. Layer III: native C++ entropy stage,
-    then the granule-parallel dense stage (:class:`ops.mp3_dense.Mp3Dense`)
-    in chained chunks of ``granule_chunk`` granules (a memory bound).
-    Layers I and II: the native per-frame bitstream stage, then the
-    frame-parallel polyphase stage (:class:`ops.mp3_dense.L12Dense`) in
-    chained chunks of ``granule_chunk`` frames."""
+    """Whole-file MPEG audio decode. Layer III: the entropy stage, on the
+    card (M0, :mod:`ops.mp3_entropy`, all clips of a call in one launch)
+    where the device is CUDA and the native C++ one otherwise or for a
+    clip M0 rejects, then the granule-parallel dense stage
+    (:class:`ops.mp3_dense.Mp3Dense`) in chained chunks of
+    ``granule_chunk`` granules (a memory bound). Layers I and II: the
+    native per-frame bitstream stage, then the frame-parallel polyphase
+    stage (:class:`ops.mp3_dense.L12Dense`) in chained chunks of
+    ``granule_chunk`` frames."""
 
     def __init__(self, *, device="cuda", granule_chunk: int = 4096,
                  gapless: bool = True):
@@ -435,7 +449,7 @@ class Mp3BatchDecoder:
         """Native Layer III extraction, copied out of the pooled buffers:
         (spectra [G, C, 576], bt [G, C], mixed [G, C]) or None when the
         stream is malformed. The frames extracted are counted as
-        ``mp3_frames``."""
+        ``mp3_frames``, the clip as ``mp3_host_streams``."""
         from . import native
 
         ext = native.mp3_extract(reader._buf, reader._offsets, reader._sizes,
@@ -445,28 +459,81 @@ class Mp3BatchDecoder:
         C = reader.header.n_channels
         G = ext["n_granules"]
         trace.count("mp3_frames", len(reader._offsets))
+        trace.count("mp3_host_streams", 1)
         return (np.array(ext["spectra"][:G, :C], copy=True),
                 np.array(ext["bt"][:G, :C], copy=True),
                 np.array(ext["mixed"][:G, :C], copy=True).astype(bool))
 
+    def _card_entropy(self, readers) -> list:
+        """M0 over the Layer III clips ``readers``, one launch: for each
+        clip, (spectra [G, C, 576], bt [G, C], mixed [G, C]) on the card,
+        or None where a frame's status is not 0 (the clip then takes the
+        host's extraction). Clips of one channel count lie in adjacent
+        lanes in the callers' order, so their views are adjacent too.
+        Counted: ``mp3_card_streams``, and ``mp3_frames``; the frame
+        bytes M0 read and the lanes it wrote as ``mp3_card_bytes`` and
+        ``mp3_card_lanes``."""
+        from .ops import mp3_entropy
+
+        if not readers:
+            return []
+        with trace.span("extract"):
+            plan = mp3_entropy.plan(
+                [r._offsets for r in readers], [r._sizes for r in readers],
+                [r.header.n_channels for r in readers],
+                [2 if r.header.is_mpeg1 else 1 for r in readers])
+        with trace.span("pack"):
+            data = plan.pack([r._buf for r in readers])
+        tensors = trace.to_device(self.device, data, plan.frames, plan.clips)
+        with trace.span("enqueue"):
+            spectra, bt, mixed, status = mp3_entropy.mp3_entropy(
+                *tensors, mp3_entropy.device_tables(self.device),
+                plan.n_lanes)
+        status = trace.to_host(status)
+        with trace.span("extract"):
+            clean = plan.clean(status)
+            if trace.enabled():
+                trace.count("mp3_card_streams", int(clean.sum()))
+                trace.count("mp3_frames", int(plan.count[clean].sum()))
+                trace.count("mp3_card_bytes", int(plan.frames[:, 1].sum()))
+                trace.count("mp3_card_lanes", plan.n_lanes)
+            out = []
+            for i, ok in enumerate(clean.tolist()):
+                if not ok:
+                    out.append(None)
+                    continue
+                lo, hi, C = (int(plan.lane[i]),
+                             int(plan.lane[i] + plan.lanes[i]),
+                             int(plan.channels[i]))
+                out.append((spectra[lo:hi].view(-1, C, 576),
+                            bt[lo:hi].view(-1, C), mixed[lo:hi].view(-1, C)))
+        return out
+
     def _dense_chunked(self, spectra, bt, mixed, boundary=None) -> np.ndarray:
         """[G, C, 576] spectra -> [G, C, 576] PCM, chunk by chunk with the
-        carried state kept on the device. Its input's lanes (granule x
+        carried state kept on the device; the lanes are host arrays, or
+        tensors on the device already (M0's). Its input's lanes (granule x
         channel) are counted as ``mp3_lanes``, the short-block ones as
         ``mp3_short_lanes``."""
         G, C = spectra.shape[:2]
         if trace.enabled():
             trace.count("mp3_lanes", G * C)
             trace.count("mp3_short_lanes", int((bt == BLOCK_SHORT).sum()))
+        on_device = isinstance(spectra, torch.Tensor)
         dev = self.device
         parts = []
         ht = st = None
         for i in range(0, G, self.granule_chunk):
             j = min(G, i + self.granule_chunk)
-            lanes = [spectra[i:j], bt[i:j], mixed[i:j]]
-            if boundary is not None:
-                lanes.append(boundary[i:j])
-            x, b, m, *bd = trace.to_device(dev, *lanes)
+            if on_device:
+                x, b, m = spectra[i:j], bt[i:j], mixed[i:j]
+                bd = ([] if boundary is None
+                      else trace.to_device(dev, boundary[i:j]))
+            else:
+                lanes = [spectra[i:j], bt[i:j], mixed[i:j]]
+                if boundary is not None:
+                    lanes.append(boundary[i:j])
+                x, b, m, *bd = trace.to_device(dev, *lanes)
             with trace.span("enqueue"):
                 out, ht, st = self.dense(x, b, m, ht, st,
                                          boundary=bd[0] if bd else None)
@@ -476,6 +543,11 @@ class Mp3BatchDecoder:
                     else np.zeros((0, C, 576), np.float32))
 
     def decode_bytes(self, data: bytes) -> DecodedAudio:
+        return self._decode_bytes(data, card=True)
+
+    def _decode_bytes(self, data: bytes, card: bool) -> DecodedAudio:
+        """One stream; ``card`` False keeps a Layer III stream's entropy on
+        the host (a stream M0 rejected)."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
@@ -484,10 +556,16 @@ class Mp3BatchDecoder:
         if h.layer != LAYER3:
             return self._decode_l12(data, reader)
         if not native.available():
+            trace.count("mp3_host_streams", 1)
             return _host_decode(data, self.gapless)
-        with trace.span("extract"):
-            got = self._extract(reader)
+        got = None
+        if card and self.device.type == "cuda":
+            got, = self._card_entropy([reader])
         if got is None:
+            with trace.span("extract"):
+                got = self._extract(reader)
+        if got is None:
+            trace.count("mp3_host_streams", 1)
             return _host_decode(data, self.gapless)
         pcm = self._dense_chunked(*got)
         C = h.n_channels
@@ -566,53 +644,67 @@ class Mp3BatchDecoder:
         stream with the same channel count share the dense-stage chunks; a
         per-granule boundary mask breaks the hybrid and polyphase chains at
         file starts, so merged output equals per-file output. Streams that
-        are not native-extractable Layer III take their per-file path."""
+        are not extractable Layer III take their per-file path, in the
+        callers' order, before the merged dense stage of the rest."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
-        jobs = []  # (idx, reader, spectra, bt, mixed)
-        for i, data in enumerate(datas):
-            got = None
-            try:
-                if native.available():
+        layer3 = {}
+        if native.available():
+            for i, data in enumerate(datas):
+                try:
                     reader = self._reader(data)
-                    if reader.header.layer == LAYER3:
-                        with trace.span("extract"):
-                            got = self._extract(reader)
-            except Exception:
-                got = None  # decode_bytes raises or routes the stream
-            if got is None:
-                results[i] = self.decode_bytes(data)
-            else:
-                jobs.append((i, reader) + got)
+                except Exception:
+                    continue  # decode_bytes raises or routes the stream
+                if reader.header.layer == LAYER3:
+                    layer3[i] = reader
+        got = self._entropy(layer3)
         by_c = {}
-        for job in jobs:
-            by_c.setdefault(int(job[2].shape[1]), []).append(job)
+        for i, data in enumerate(datas):
+            if got.get(i) is None:
+                results[i] = self._decode_bytes(data, card=False)
+            else:
+                by_c.setdefault(int(got[i][0].shape[1]), []).append(
+                    (i, layer3[i]) + got[i])
         for C, group in by_c.items():
-            self._dispatch_merged(C, group, results)
+            with trace.span("pack"):
+                join = (np.concatenate if isinstance(group[0][2], np.ndarray)
+                        else _joined)
+                spectra, bt, mixed = [join([g[k] for g in group])
+                                      for k in (2, 3, 4)]
+                counts = [g[2].shape[0] for g in group]
+                boundary = np.zeros(spectra.shape[0], bool)
+                starts = np.cumsum([0] + counts[:-1])
+                boundary[starts[np.asarray(counts) > 0]] = True
+            pcm_all = self._dense_chunked(spectra, bt, mixed, boundary)
+            with trace.span("stitch"):
+                pos = 0
+                for (idx, reader, *_), n_g in zip(group, counts):
+                    pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(
+                        C, -1)
+                    pos += n_g
+                    pcm = _gapless_trim(pcm, reader.default_track(),
+                                        self.gapless)
+                    results[idx] = DecodedAudio(
+                        pcm, reader.header.sample_rate, 32)
         return results
 
-    def _dispatch_merged(self, C: int, group, results) -> None:
-        with trace.span("pack"):
-            spectra = np.concatenate([g[2] for g in group])
-            bt = np.concatenate([g[3] for g in group])
-            mixed = np.concatenate([g[4] for g in group])
-            counts = [g[2].shape[0] for g in group]
-            boundary = np.zeros(spectra.shape[0], bool)
-            starts = np.cumsum([0] + counts[:-1])
-            boundary[starts[np.asarray(counts) > 0]] = True
-        pcm_all = self._dense_chunked(spectra, bt, mixed, boundary)
-        with trace.span("stitch"):
-            pos = 0
-            for (idx, reader, _, _, _), n_g in zip(group, counts):
-                pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(
-                    C, -1)
-                pos += n_g
-                pcm = _gapless_trim(pcm, reader.default_track(),
-                                    self.gapless)
-                results[idx] = DecodedAudio(pcm, reader.header.sample_rate,
-                                            32)
+    def _entropy(self, readers: dict) -> dict:
+        """Each Layer III stream's lanes ({index: reader} -> {index: (spectra,
+        bt, mixed) or None}): M0 in one launch on the card, the native
+        extraction stream by stream on the CPU."""
+        if self.device.type == "cuda":
+            return dict(zip(readers, self._card_entropy(list(
+                readers.values()))))
+        out = {}
+        for i, reader in readers.items():
+            try:
+                with trace.span("extract"):
+                    out[i] = self._extract(reader)
+            except Exception:
+                out[i] = None  # decode_bytes raises or routes the stream
+        return out
 
 
 def _oracle_lanes(items) -> dict:

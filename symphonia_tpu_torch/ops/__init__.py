@@ -3,6 +3,10 @@ a plain PyTorch twin beside it.
 
 * ``flac_dense`` — FLAC predictor reconstruction + wasted bits (kernel F1)
   and stereo decorrelation (kernel F2).
+* ``mp3_entropy`` — MPEG audio Layer III entropy decode of whole clips
+  from their frame bytes, one thread a frame, bit-equal to the native
+  library (kernel M0 ``mp3_entropy``), with the host planning of its
+  frame and clip tables.
 * ``mp3_dense`` — MP3 Layer III hybrid synthesis (kernel M1: a warp takes
   a run of granules, a lane one subband, the 36 x 18 product blocked in
   registers and the overlap tail carried in them), and the fp32

@@ -36,7 +36,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "flac_md5",
-           "mp3_hybrid", "mp3_synth",
+           "mp3_entropy", "mp3_hybrid", "mp3_synth",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
            "mpa_l12_synth", "vorbis_lap", "pcm_unpack", "rice_decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -64,6 +64,10 @@ _SIGNATURES = {
     "flac_md5_launch": [_P] * 4 + [_I64, _I64, _I, _I, _P],
     # out, iters, stream (a dependent operation's latency, measured)
     "flac_md5_chain_launch": [_P, _I, _P],
+    # data, n, frames, F, clips, K, huff, fl, it, spectra, L, bt, mixed,
+    # status, stream
+    "mp3_entropy_launch": [_P, _I64, _P, _I64, _P, _I] + [_P] * 4
+                          + [_I64] + [_P] * 4,
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
     # run, stream
     "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _I, _P],

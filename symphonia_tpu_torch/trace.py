@@ -27,7 +27,10 @@ verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
 card or ``batch._flac_md5_ok`` on the host); ``mp3_frames`` (Layer III
 frames extracted), ``mp3_lanes`` and ``mp3_short_lanes`` (the granule x
 channel lanes sent to M1 and M2, and those of short blocks, counted from
-the extraction's output, not from the launches).
+the extraction's output, not from the launches); ``mp3_card_streams``,
+``mp3_host_streams`` (host entropy: one a Layer III clip, by where its
+entropy ran, M0 on the card or the host's extraction), ``mp3_card_bytes``
+and ``mp3_card_lanes`` (the frame bytes M0 read and the lanes it wrote).
 """
 
 from __future__ import annotations
