@@ -9,6 +9,12 @@ point), their plain PyTorch twins on ``"cpu"``. A call without a device
 runs on the card or raises when there is none; nothing falls back to the
 CPU on its own.
 
+One path: :func:`decode_many` probes each stream once and hands the probed
+reader to its route's batch decoder (``_decode_opened``), so no stream is
+opened twice; :func:`decode_bytes` is ``decode_many`` of one. A batch
+decoder called directly opens its streams itself (``_open``) and then
+takes the same path; its ``decode_bytes`` is its ``decode_many`` of one.
+
 Every other stream (PCM in WAV, AIFF, CAF or MP4, ADPCM, ALAC, and codecs
 in foreign containers such as FLAC in Matroska) takes the reference's own
 per-packet loop (:func:`_packet_decode`, ``symphonia_tpu/batch.py:715-743``)
@@ -39,8 +45,7 @@ from .ops.aac_dense import LANE_KEYS, AacDense
 from .ops.aac_dense import reference_tables as aac_tables
 from .ops.mp3_dense import (BLOCK_SHORT, L12Dense, Mp3Dense, l12_tables,
                              reference_tables)
-from .ops.vorbis_dense import (VorbisDense, decode_packets_dense,
-                               decode_packets_dense_multi)
+from .ops.vorbis_dense import VorbisDense, decode_packets_dense_multi
 
 logger = logging.getLogger("symphonia_tpu_torch.batch")
 
@@ -126,8 +131,34 @@ def _copy_pooled(d: dict) -> dict:
             for k, v in d.items()}
 
 
-class FlacBatchDecoder:
-    """Whole-file(s) FLAC decode through the batched dense stage.
+class _BatchDecoder:
+    """The one path of the four batch decoders: :meth:`decode_many` opens
+    each stream (the decoder's ``_open``, in span ``open``) and hands the
+    streams and their readers to the decoder's ``_decode_opened``, which
+    the facade calls with the probe's readers (the bytes serve a stream's
+    host route); ``decode_bytes`` is ``decode_many`` of one."""
+
+    def decode_bytes(self, data: bytes) -> DecodedAudio:
+        return self.decode_many([data])[0]
+
+    def decode_file(self, path: str) -> DecodedAudio:
+        with open(path, "rb") as f:
+            return self.decode_bytes(f.read())
+
+    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
+        readers = []
+        for data in datas:
+            with trace.span("open"):
+                readers.append(self._open(MediaSourceStream(data)))
+        return self._decode_opened(datas, readers)
+
+
+class FlacBatchDecoder(_BatchDecoder):
+    """Whole-file(s) FLAC decode through the batched dense stage: each
+    opened stream's frames extracted natively, the frame lanes of every
+    stream with one channel count decoded in merged lane chunks (F1, F2)
+    and verified (F3 or the host); a stream the native extraction does not
+    take decodes from its parsed frames, one above 25 bits on the host.
 
     ``lane_chunk`` bounds how many subframe lanes go to the device per
     dispatch (memory bound); any lane count is a valid kernel shape."""
@@ -192,59 +223,41 @@ class FlacBatchDecoder:
             blocks = reader._frame_dur.astype(np.int64)
         return packed, blocks
 
-    def decode_bytes(self, data: bytes, _reader=None,
-                     _extracted=None) -> DecodedAudio:
+    def _decode_parsed(self, reader) -> DecodedAudio:
+        """The robust path of one stream whose frames the native extraction
+        did not take: each frame parsed on the host, then packed and
+        decoded in lane chunks."""
         from .codecs.flac import parse_frame
-        from .formats.flac import FlacReader
 
-        reader = (_reader if _reader is not None
-                  else FlacReader(MediaSourceStream(data)))
         si = reader.stream_info
-        if si.bits_per_sample > 25:
-            # 32-bit streams carry 33-bit side channels, beyond the int32
-            # lanes; the reference decodes them on the host, exactly.
-            out = _host_decode(data, gapless=True)
-            if self.verify:
-                out.md5_ok = _verify_host(out.samples, si)
-            return out
-        if _extracted is None:
-            with trace.span("extract"):
-                _extracted = self._extract_host(reader)
-        packed, blocks = _extracted
-        empty = DecodedAudio(np.zeros((si.channels, 0), np.int32),
-                             si.sample_rate, si.bits_per_sample)
-        if packed is None and blocks is None:  # no frames found at all
-            return empty
-        if packed is not None:
-            pcm = self._decode_packed_chunked(packed, blocks)
-        else:
-            frames = []
-            with trace.span("extract"):
-                for p in reader.packet_table().data:
-                    try:
-                        frames.append(parse_frame(p, si))
-                    except DecodeError:
-                        # Corrupt frame: skip the packet, as the reference
-                        # decode loop does.
-                        logger.warning("flac: skipping corrupt frame")
-            if not frames:
-                return empty
-            C = max(f.header.n_channels for f in frames)
-            frames_per_chunk = max(1, self.lane_chunk // C)
-            n_max = max(si.block_len_max,
-                        max(f.header.block_size for f in frames))
-            outs = []
-            for i in range(0, len(frames), frames_per_chunk):
-                chunk = frames[i : i + frames_per_chunk]
-                with trace.span("pack"):
-                    pk = flac_dense.pack_parsed_frames(chunk, n_max=n_max)
-                out = flac_dense.decode_packed(pk, self.device)
-                with trace.span("stitch"):
-                    for j, f in enumerate(chunk):
-                        outs.append(out[j, : f.header.n_channels,
-                                        : f.header.block_size])
+        frames = []
+        with trace.span("extract"):
+            for p in reader.packet_table().data:
+                try:
+                    frames.append(parse_frame(p, si))
+                except DecodeError:
+                    # Corrupt frame: skip the packet, as the reference
+                    # decode loop does.
+                    logger.warning("flac: skipping corrupt frame")
+        if not frames:
+            return DecodedAudio(np.zeros((si.channels, 0), np.int32),
+                                si.sample_rate, si.bits_per_sample)
+        C = max(f.header.n_channels for f in frames)
+        frames_per_chunk = max(1, self.lane_chunk // C)
+        n_max = max(si.block_len_max,
+                    max(f.header.block_size for f in frames))
+        outs = []
+        for i in range(0, len(frames), frames_per_chunk):
+            chunk = frames[i : i + frames_per_chunk]
+            with trace.span("pack"):
+                pk = flac_dense.pack_parsed_frames(chunk, n_max=n_max)
+            out = flac_dense.decode_packed(pk, self.device)
             with trace.span("stitch"):
-                pcm = np.concatenate(outs, axis=1)
+                for j, f in enumerate(chunk):
+                    outs.append(out[j, : f.header.n_channels,
+                                    : f.header.block_size])
+        with trace.span("stitch"):
+            pcm = np.concatenate(outs, axis=1)
         if si.n_samples:
             pcm = pcm[:, : si.n_samples]
         md5_ok = _verify_host(pcm, si) if self.verify else None
@@ -277,9 +290,11 @@ class FlacBatchDecoder:
         with trace.span("stitch"):
             return np.concatenate(outs, axis=1)
 
-    def decode_file(self, path: str) -> DecodedAudio:
-        with open(path, "rb") as f:
-            return self.decode_bytes(f.read())
+    @staticmethod
+    def _open(mss):
+        from .formats.flac import FlacReader
+
+        return FlacReader(mss)
 
     def decode_files(self, paths: Sequence[str]) -> List[DecodedAudio]:
         datas = []
@@ -288,33 +303,34 @@ class FlacBatchDecoder:
                 datas.append(f.read())
         return self.decode_many(datas)
 
-    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
-        """Decode several FLAC streams through MERGED device dispatches:
-        frame lanes of every stream with the same channel count share the
-        lane chunks; per-file outputs are unchanged. Streams whose host
-        stage yields no packed lanes take their per-file path."""
-        from .formats.flac import FlacReader
-
+    def _decode_opened(self, datas: Sequence[bytes],
+                       readers) -> List[DecodedAudio]:
+        """Decode FLAC streams already opened (``readers``, one a stream)
+        through MERGED device dispatches: the frame lanes of every stream
+        with the same channel count share the lane chunks; per-file outputs
+        are unchanged. A stream above 25 bits takes the host route, and one
+        whose frames the native extraction does not take its parsed-frames
+        path (:meth:`_decode_parsed`), in the callers' order, before the
+        merged groups."""
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         jobs = []  # (result idx, stream_info, packed, blocks)
-        for i, data in enumerate(datas):
-            try:
-                with trace.span("open"):
-                    reader = FlacReader(MediaSourceStream(data))
-            except Exception:
-                reader = None  # decode_bytes raises the reader's error
-            if reader is None or reader.stream_info.bits_per_sample > 25:
-                results[i] = self.decode_bytes(data)
+        for i, (data, reader) in enumerate(zip(datas, readers)):
+            si = reader.stream_info
+            if si.bits_per_sample > 25:
+                # 32-bit streams carry 33-bit side channels, beyond the
+                # int32 lanes; the reference decodes them on the host,
+                # exactly.
+                results[i] = _host_decode(data, gapless=True)
+                if self.verify:
+                    results[i].md5_ok = _verify_host(results[i].samples, si)
                 continue
             with trace.span("extract"):
                 packed, blocks = self._extract_host(reader)
             if packed is None:
-                # Robust per-file path, reusing the scan just done.
-                results[i] = self.decode_bytes(
-                    data, _reader=reader, _extracted=(packed, blocks))
+                results[i] = self._decode_parsed(reader)
                 continue
             with trace.span("pack"):
-                jobs.append((i, reader.stream_info, _copy_pooled(packed),
+                jobs.append((i, si, _copy_pooled(packed),
                              np.array(blocks, copy=True)))
         by_c = {}
         for job in jobs:
@@ -405,15 +421,16 @@ def _joined(parts: List[torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts)
 
 
-class Mp3BatchDecoder:
-    """Whole-file MPEG audio decode. Layer III: the entropy stage, on the
-    card (M0, :mod:`ops.mp3_entropy`, all clips of a call in one launch)
-    where the device is CUDA and the native C++ one otherwise or for a
-    clip M0 rejects, then the granule-parallel dense stage
-    (:class:`ops.mp3_dense.Mp3Dense`) in chained chunks of
-    ``granule_chunk`` granules (a memory bound). Layers I and II: the
-    native per-frame bitstream stage, then the frame-parallel polyphase
-    stage (:class:`ops.mp3_dense.L12Dense`) in chained chunks of
+class Mp3BatchDecoder(_BatchDecoder):
+    """Whole-file MPEG audio decode from opened ``MpaReader``s. Layer III:
+    the entropy stage, on the card (M0, :mod:`ops.mp3_entropy`, all clips
+    of a call in one launch) where the device is CUDA and the native C++
+    one otherwise or for a clip M0 rejects, then the granule-parallel
+    dense stage (:class:`ops.mp3_dense.Mp3Dense`) over the merged clips in
+    chained chunks of ``granule_chunk`` granules (a memory bound). Layers
+    I and II, one stream at a time: the native per-frame bitstream stage,
+    then the frame-parallel polyphase stage
+    (:class:`ops.mp3_dense.L12Dense`) in chained chunks of
     ``granule_chunk`` frames."""
 
     def __init__(self, *, device="cuda", granule_chunk: int = 4096,
@@ -435,14 +452,6 @@ class Mp3BatchDecoder:
         if self._l12 is None:
             self._l12 = L12Dense.from_numpy(l12_tables(), self.device)
         return self._l12
-
-    def _reader(self, data: bytes):
-        from .core.formats import FormatOptions
-        from .formats.mpa import MpaReader
-
-        with trace.span("open"), trace.span("scan"):
-            return MpaReader(MediaSourceStream(data),
-                             FormatOptions(enable_gapless=self.gapless))
 
     @staticmethod
     def _extract(reader):
@@ -542,26 +551,19 @@ class Mp3BatchDecoder:
             return (np.concatenate(parts, axis=0) if parts
                     else np.zeros((0, C, 576), np.float32))
 
-    def decode_bytes(self, data: bytes) -> DecodedAudio:
-        return self._decode_bytes(data, card=True)
-
-    def _decode_bytes(self, data: bytes, card: bool) -> DecodedAudio:
-        """One stream; ``card`` False keeps a Layer III stream's entropy on
-        the host (a stream M0 rejected)."""
+    def _decode_stream(self, data: bytes, reader) -> DecodedAudio:
+        """One opened stream on its own: Layer I/II (:meth:`_decode_l12`),
+        or a Layer III clip whose entropy the merged pass did not give (the
+        host's extraction, then the dense stage alone), else the counted
+        host route."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
-        reader = self._reader(data)
         h = reader.header
         if h.layer != LAYER3:
             return self._decode_l12(data, reader)
-        if not native.available():
-            trace.count("mp3_host_streams", 1)
-            return _host_decode(data, self.gapless)
         got = None
-        if card and self.device.type == "cuda":
-            got, = self._card_entropy([reader])
-        if got is None:
+        if native.available():
             with trace.span("extract"):
                 got = self._extract(reader)
         if got is None:
@@ -635,38 +637,37 @@ class Mp3BatchDecoder:
             pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
         return DecodedAudio(pcm, h.sample_rate, 32)
 
-    def decode_file(self, path: str) -> DecodedAudio:
-        with open(path, "rb") as f:
-            return self.decode_bytes(f.read())
+    def _open(self, mss):
+        """An ``MpaReader``: its frame-table walk in span ``scan``."""
+        from .core.formats import FormatOptions
+        from .formats.mpa import MpaReader
 
-    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
-        """Merged-dispatch MP3 decode: granule lanes of every Layer III
-        stream with the same channel count share the dense-stage chunks; a
-        per-granule boundary mask breaks the hybrid and polyphase chains at
-        file starts, so merged output equals per-file output. Streams that
-        are not extractable Layer III take their per-file path, in the
-        callers' order, before the merged dense stage of the rest."""
+        with trace.span("scan"):
+            return MpaReader(mss, FormatOptions(enable_gapless=self.gapless))
+
+    def _decode_opened(self, datas: Sequence[bytes],
+                       readers) -> List[DecodedAudio]:
+        """Decode MPEG audio streams already opened (``readers``, one
+        ``MpaReader`` a stream) with merged dispatches: the granule lanes
+        of every Layer III stream with the same channel count share the
+        dense-stage chunks; a per-granule boundary mask breaks the hybrid
+        and polyphase chains at file starts, so merged output equals
+        per-file output. The other streams take :meth:`_decode_stream`, in
+        the callers' order, before the merged dense stage of the rest."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
-        layer3 = {}
-        if native.available():
-            for i, data in enumerate(datas):
-                try:
-                    reader = self._reader(data)
-                except Exception:
-                    continue  # decode_bytes raises or routes the stream
-                if reader.header.layer == LAYER3:
-                    layer3[i] = reader
+        layer3 = {i: r for i, r in enumerate(readers)
+                  if native.available() and r.header.layer == LAYER3}
         got = self._entropy(layer3)
         by_c = {}
-        for i, data in enumerate(datas):
+        for i, (data, reader) in enumerate(zip(datas, readers)):
             if got.get(i) is None:
-                results[i] = self._decode_bytes(data, card=False)
+                results[i] = self._decode_stream(data, reader)
             else:
                 by_c.setdefault(int(got[i][0].shape[1]), []).append(
-                    (i, layer3[i]) + got[i])
+                    (i, reader) + got[i])
         for C, group in by_c.items():
             with trace.span("pack"):
                 join = (np.concatenate if isinstance(group[0][2], np.ndarray)
@@ -703,7 +704,7 @@ class Mp3BatchDecoder:
                 with trace.span("extract"):
                     out[i] = self._extract(reader)
             except Exception:
-                out[i] = None  # decode_bytes raises or routes the stream
+                out[i] = None  # _decode_stream raises or routes it
         return out
 
 
@@ -723,12 +724,13 @@ def _oracle_lanes(items) -> dict:
     }
 
 
-class AacBatchDecoder:
-    """Whole-stream AAC-LC decode: the reference's host entropy stage, then
-    the dense stage (:class:`ops.aac_dense.AacDense`) over the lanes of
-    every (file, channel) frame sequence of a sample-rate group at once, in
-    chunks of at most ``LANE_CHUNK`` lanes (a memory bound: ~16 KB of
-    device memory per lane)."""
+class AacBatchDecoder(_BatchDecoder):
+    """Whole-stream AAC-LC decode from the probe's readers (any container):
+    the reference's host entropy stage, then the dense stage
+    (:class:`ops.aac_dense.AacDense`) over the lanes of every (file,
+    channel) frame sequence of a sample-rate group at once, in chunks of
+    at most ``LANE_CHUNK`` lanes (a memory bound: ~16 KB of device memory
+    per lane)."""
 
     LANE_CHUNK = 32768
 
@@ -743,9 +745,10 @@ class AacBatchDecoder:
         return self._dense
 
     @staticmethod
-    def _extract_host(data: bytes):
-        """Host stage for one stream: (decoder, one lane-array dict per
-        channel, see ``ops.aac_dense.LANE_KEYS``).
+    def _extract_host(fmt):
+        """Host stage for one opened stream (``fmt``, the probe's reader):
+        (decoder, one lane-array dict per channel, see
+        ``ops.aac_dense.LANE_KEYS``).
 
         The native extraction's buffers are POOLED (the next stream's
         extraction reuses them), so each channel's lanes are copied out.
@@ -753,11 +756,9 @@ class AacBatchDecoder:
         another channel count, the reference's Python oracle decodes the
         coefficients instead (undecodable packets are skipped, as the
         reference's decode loop does)."""
-        from . import get_probe
         from . import native
         from .codecs.aac import AacDecoder
 
-        fmt = get_probe().probe(MediaSourceStream(data)).format
         track = _audio_track_or_raise(fmt)
         if track.codec_params.codec != "aac":
             raise DecodeError("not an AAC stream")
@@ -792,27 +793,24 @@ class AacBatchDecoder:
                 items[c].append(item)
         return dec, [_oracle_lanes(it) for it in items]
 
-    def decode_bytes(self, data: bytes) -> DecodedAudio:
-        with trace.span("extract"):
-            dec, chans = self._extract_host(data)
-        results: List[Optional[DecodedAudio]] = [None]
-        self._dispatch_merged(dec.bands_long, [(0, dec, chans)], results)
-        return results[0]
+    @staticmethod
+    def _open(mss):
+        from . import get_probe
 
-    def decode_file(self, path: str) -> DecodedAudio:
-        with open(path, "rb") as f:
-            return self.decode_bytes(f.read())
+        return get_probe().probe(mss).format
 
-    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
-        """Merged-dispatch AAC decode: the (file, channel) frame sequences
-        of every stream with the same ``bands_long`` (sample-rate group)
-        become one lane batch; output per file equals ``decode_bytes``. An
-        undecodable stream raises what ``decode_bytes`` raises for it."""
+    def _decode_opened(self, datas: Sequence[bytes],
+                       fmts) -> List[DecodedAudio]:
+        """Decode AAC streams already opened (``fmts``, the probe's reader
+        of each) with merged dispatches: the (file, channel) frame
+        sequences of every stream with the same ``bands_long`` (sample-rate
+        group) become one lane batch. An undecodable stream raises in the
+        callers' order."""
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         groups = {}
-        for i, data in enumerate(datas):
+        for i, fmt in enumerate(fmts):
             with trace.span("extract"):
-                dec, chans = self._extract_host(data)
+                dec, chans = self._extract_host(fmt)
             key = tuple(int(b) for b in dec.bands_long)
             groups.setdefault(key, []).append((i, dec, chans))
         for bl, group in groups.items():
@@ -854,11 +852,11 @@ class AacBatchDecoder:
                 results[idx] = DecodedAudio(pcm, dec.spec.rate, 32)
 
 
-class VorbisBatchDecoder:
-    """Whole-stream Ogg Vorbis decode: the reference's host entropy stage
-    (floors, residues, coupling), then the dense stage
-    (:mod:`ops.vorbis_dense`): one V1 IMDCT per distinct block size over
-    the packet-channel lanes of every stream, in chunks of
+class VorbisBatchDecoder(_BatchDecoder):
+    """Whole-stream Ogg Vorbis decode from opened ``OggReader``s: the
+    reference's host entropy stage (floors, residues, coupling), then the
+    dense stage (:mod:`ops.vorbis_dense`): one V1 IMDCT per distinct block
+    size over the packet-channel lanes of every stream, in chunks of
     ``vorbis_dense.LANE_CHUNK`` lanes, and the reference's numpy lap stitch
     per stream."""
 
@@ -867,9 +865,10 @@ class VorbisBatchDecoder:
         self.dense = VorbisDense({}, self.device)
 
     @staticmethod
-    def _extract_host(data: bytes):
-        """Host stage for one stream: (track, decoder, per-packet spectra
-        [C, n/2], block flags, per-packet (trim_start, trim_end)).
+    def _extract_host(reader):
+        """Host stage for one opened stream (``reader``, an ``OggReader``):
+        (track, decoder, per-packet spectra [C, n/2], block flags,
+        per-packet (trim_start, trim_end)).
 
         The native bulk entropy call returns fresh arrays (not pooled), so
         the spectra can wait for other streams. Without the native library,
@@ -878,9 +877,7 @@ class VorbisBatchDecoder:
         their trims) as the reference's decode loop does."""
         from . import native
         from .codecs.vorbis import VorbisDecoder
-        from .formats.ogg import OggReader
 
-        reader = OggReader(MediaSourceStream(data))
         track = _audio_track_or_raise(reader)
         if track.codec_params.codec != "vorbis":
             raise DecodeError("not a Vorbis stream")
@@ -930,27 +927,22 @@ class VorbisBatchDecoder:
             out[dst] = pcm[src]
         return DecodedAudio(out, track.codec_params.sample_rate, 32)
 
-    def decode_bytes(self, data: bytes) -> DecodedAudio:
-        with trace.span("extract"):
-            track, dec, spectra, flags, trims = self._extract_host(data)
-        pcm = decode_packets_dense(spectra, flags, dec.bs0, dec.bs1,
-                                   dense=self.dense)
-        with trace.span("stitch"):
-            return self._finish(track, pcm, trims)
+    @staticmethod
+    def _open(mss):
+        from .formats.ogg import OggReader
 
-    def decode_file(self, path: str) -> DecodedAudio:
-        with open(path, "rb") as f:
-            return self.decode_bytes(f.read())
+        return OggReader(mss)
 
-    def decode_many(self, datas: Sequence[bytes]) -> List[DecodedAudio]:
-        """Merged-dispatch Vorbis decode: the packet-channel lanes of every
-        stream group by block size across files, one IMDCT per distinct
-        size; output per file equals ``decode_bytes``. An undecodable
-        stream raises what ``decode_bytes`` raises for it."""
+    def _decode_opened(self, datas: Sequence[bytes],
+                       readers) -> List[DecodedAudio]:
+        """Decode Vorbis streams already opened (``readers``) with merged
+        dispatches: the packet-channel lanes of every stream group by
+        block size across files, one IMDCT per distinct size. An
+        undecodable stream raises in the callers' order."""
         got = []
-        for d in datas:
+        for reader in readers:
             with trace.span("extract"):
-                got.append(self._extract_host(d))
+                got.append(self._extract_host(reader))
         pcms = decode_packets_dense_multi(
             [(spectra, flags, dec.bs0, dec.bs1)
              for _, dec, spectra, flags, _ in got],
@@ -1049,7 +1041,7 @@ def _probe(data: bytes):
         route = codec
     elif codec == "vorbis" and isinstance(fmt, OggReader):
         route = "vorbis"
-    elif codec == "aac":  # any container: the AAC decoder re-probes
+    elif codec == "aac":  # any container: the AAC decoder takes the reader
         route = "aac"
     else:
         route = "packet"
@@ -1058,21 +1050,9 @@ def _probe(data: bytes):
 
 def decode_bytes(data: bytes, *, device="cuda", verify: bool = False
                  ) -> DecodedAudio:
-    """Decode one stream of any format and codec the port reads: FLAC, MPEG
-    audio (Layer I, II or III), AAC-LC and Ogg Vorbis through their batch
-    decoders on ``device``, every other stream through the per-packet
-    loop."""
-    resolve_device(device)
-    route, fmt, track = _probe(data)
-    if route == "flac":
-        return FlacBatchDecoder(device=device, verify=verify).decode_bytes(data)
-    if route in _MPA:
-        return Mp3BatchDecoder(device=device).decode_bytes(data)
-    if route == "aac":
-        return AacBatchDecoder(device=device).decode_bytes(data)
-    if route == "vorbis":
-        return VorbisBatchDecoder(device=device).decode_bytes(data)
-    return _packet_decode(fmt, track, verify)
+    """Decode one stream of any format and codec the port reads:
+    :func:`decode_many` of one."""
+    return decode_many([data], device=device, verify=verify)[0]
 
 
 def decode_file(path: str, *, device="cuda", verify: bool = False
@@ -1086,40 +1066,39 @@ def decode_many(datas: Sequence[bytes], *, device="cuda",
                 verify: bool = False) -> List[DecodedAudio]:
     """Decode a batch of streams, merging device work across files.
 
-    The serving entry point: streams are probed and grouped by codec;
-    FLAC, MP3 Layer III, AAC and Vorbis groups each share merged
-    dispatches. Layer I/II streams, and streams that no batch pipeline
-    takes (through the per-packet loop), decode one by one in input order
-    while the batch is probed, before the groups, as in the reference
+    The serving entry point: each stream is probed once, and its probed
+    reader goes to its route's batch decoder (FLAC, MP3 Layer III, AAC,
+    Vorbis), whose streams share merged dispatches; nothing opens a stream
+    again. Layer I/II streams, and streams that no batch pipeline takes
+    (through the per-packet loop), decode one by one in input order while
+    the batch is probed, before the groups, as in the reference
     (``symphonia_tpu/batch.py:645-666``). Output order matches input order.
-    Fail-fast: an undecodable stream raises what ``decode_bytes`` raises
-    for it, and the first to raise is the reference's.
+    Fail-fast: an undecodable stream raises, and the first to raise is
+    the reference's.
 
     Each call is one request of :mod:`trace` (root span ``decode_many``)
     while ``torch.profiler`` records."""
     with trace.span("decode_many"):
         resolve_device(device)
         with trace.span("setup"):
-            mpa = Mp3BatchDecoder(device=device)
-            decoders = (
-                (("flac",), FlacBatchDecoder(device=device, verify=verify)),
-                (("mp3",), mpa),
-                (("aac",), AacBatchDecoder(device=device)),
-                (("vorbis",), VorbisBatchDecoder(device=device)))
-        routes = []
+            decoders = {"flac": FlacBatchDecoder(device=device, verify=verify),
+                        "mp3": Mp3BatchDecoder(device=device),
+                        "aac": AacBatchDecoder(device=device),
+                        "vorbis": VorbisBatchDecoder(device=device)}
+        groups = {}  # route -> [(index, data, reader)]
         results: List[Optional[DecodedAudio]] = [None] * len(datas)
         for i, data in enumerate(datas):
             with trace.span("probe"):
                 route, fmt, track = _probe(data)
-            routes.append(route)
             if route == "packet":
                 results[i] = _packet_decode(fmt, track, verify)
             elif route in ("mp1", "mp2"):
-                results[i] = mpa.decode_bytes(data)
-        for codecs, dec in decoders:
-            idx = [i for i, r in enumerate(routes) if r in codecs]
-            if idx:
-                for i, out in zip(idx,
-                                  dec.decode_many([datas[i] for i in idx])):
+                results[i] = decoders["mp3"]._decode_l12(data, fmt)
+            else:
+                groups.setdefault(route, []).append((i, data, fmt))
+        for route, dec in decoders.items():
+            if route in groups:
+                idx, ds, fmts = zip(*groups[route])
+                for i, out in zip(idx, dec._decode_opened(ds, fmts)):
                     results[i] = out
         return results

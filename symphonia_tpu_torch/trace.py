@@ -17,8 +17,10 @@ is a root of its own. A request is stored when its root closes;
 The stored ``perf_counter_ns`` times give durations only.
 
 Span names: ``decode_many``, ``setup``, ``probe``, ``open`` (facade /
-routing); ``scan`` (demux: an MPEG audio reader built, its frame-table
-walk, in the probe and when the decoder opens the stream); ``extract``
+routing; ``open``: a batch decoder called directly opening a stream, which
+``decode_many`` leaves to the probe); ``scan`` (demux: an MPEG audio
+reader built, its frame-table walk, once a stream: in the probe, or in
+``open``); ``extract``
 (host entropy); ``pack``, ``h2d``, ``d2h`` (lane packing + copies);
 ``enqueue`` (dense kernels); ``stitch``, ``verify`` (stitch / verify).
 Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing + copies);

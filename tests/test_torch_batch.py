@@ -473,6 +473,60 @@ class TestFacade:
                 if kind != "aac":
                     _close_mp3(got, _ref_one(d))
 
+    def test_each_stream_is_opened_once(self, monkeypatch):
+        # Each stream's container reader is built once, by the probe, and
+        # handed to its decoder: no ``open`` span, one ``scan`` (the MPEG
+        # frame walk) a Layer I-III stream.
+        from collections import Counter
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from symphonia_tpu_torch import trace
+        from symphonia_tpu_torch.formats import adts, flac, mpa, ogg
+        from symphonia_tpu_torch.testing import mp3_lame_builder as lb
+
+        built = {}
+        for cls in (flac.FlacReader, mpa.MpaReader, adts.AdtsReader,
+                    ogg.OggReader):
+            def init(self, *a, _real=cls.__init__, _name=cls.__name__, **k):
+                built[_name] = built.get(_name, 0) + 1
+                _real(self, *a, **k)
+            monkeypatch.setattr(cls, "__init__", init)
+        tagged_mp3 = lb.build_stream(
+            lb.draw(np.random.default_rng(5), 4000), 4000).data
+        assert tagged_mp3.startswith(b"ID3")
+        datas = [_flacs()[0][0], tagged_mp3, _l12s()[1][1], _aacs()[2][1],
+                 _vorbis()[1][1]]
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            outs = port.decode_many(datas, device="cpu")
+        (r,) = trace.requests()
+        trace.reset()
+        assert built == {"FlacReader": 1, "MpaReader": 2, "AdtsReader": 1,
+                         "OggReader": 1}
+        assert r.calls["probe"] == len(datas) and "open" not in r.calls
+        assert r.calls["scan"] == 2
+        assert all(o.samples.shape[1] > 0 for o in outs)
+
+    @pytest.mark.parametrize("text", ["a", "b" * 3000], ids=["short",
+                                                           "long"])
+    def test_id3v2_tagged_flac(self, text):
+        # The probe reads past the tag; the decoder takes its reader, so
+        # the stream decodes as it does untagged, MD5 verified.
+        from symphonia_tpu_torch.testing import mp3_lame_builder as lb
+
+        data, src = _flacs()[2]
+        tag = lb.id3v2_tag({"TIT2": text, "TPE1": "port"})
+        tagged = tag + data
+        assert port._probe(tagged)[0] == "flac"
+        many = port.decode_many([tagged, data], device="cpu", verify=True)
+        one = port.decode_bytes(tagged, device="cpu", verify=True)
+        for got in many + [one]:
+            np.testing.assert_array_equal(got.samples, src)
+            assert got.md5_ok is True
+        _same_flac(many[0], many[1])
+        _same_flac(one, many[1])
+
     def test_decode_file(self, tmp_path):
         data, src = _flacs()[3]
         p = tmp_path / "a.flac"

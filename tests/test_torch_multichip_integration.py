@@ -144,7 +144,7 @@ def sharded():
     ranks on a 4 x 2 mesh."""
     from symphonia_tpu_torch import native
     from symphonia_tpu_torch.batch import (AacBatchDecoder, Mp3BatchDecoder,
-                                           VorbisBatchDecoder)
+                                           VorbisBatchDecoder, _probe)
     from symphonia_tpu_torch.ops.aac_dense import LANE_KEYS
 
     if not native.available():
@@ -159,15 +159,14 @@ def sharded():
              p["wasted"].reshape(F, 2), p["assign"][:F]), n_max)
     mp3s = {}
     for name, data in _mp3_streams().items():
-        dec = Mp3BatchDecoder(device="cpu")
-        lanes = dec._extract(dec._reader(data))
+        lanes = Mp3BatchDecoder._extract(_probe(data)[1])
         assert lanes is not None
         mp3s[name] = lanes
-    dec, chans = AacBatchDecoder._extract_host(_aac_stream())
+    dec, chans = AacBatchDecoder._extract_host(_probe(_aac_stream())[1])
     sfb = native.aac_sfb_map(np.asarray(dec.bands_long))
     aac = ([tuple(c[k] for k in LANE_KEYS) for c in chans], sfb)
     _, vdec, spectra, flags, _ = VorbisBatchDecoder._extract_host(
-        _vorbis_stream())
+        _probe(_vorbis_stream())[1])
     groups = {}
     for p_, f in enumerate(flags):
         n = vdec.bs1 if f else vdec.bs0

@@ -124,8 +124,9 @@ def test_per_stream_spans(verify):
                         verify=verify)
     n = len(flacs("mixed"))
     assert r.calls["decode_many"] == r.calls["setup"] == 1
-    for name in ("probe", "open", "extract"):
+    for name in ("probe", "extract"):
         assert r.calls[name] == n, name
+    assert "open" not in r.calls  # the decoder takes the probe's reader
     assert r.calls.get("verify", 0) == (n if verify else 0)
 
 
@@ -163,8 +164,9 @@ def test_one_profiler_range_a_span():
                     for e in prof.profiler.kineto_results.events()
                     if e.name().startswith("span:"))
     assert Counter(n for _, _, n in ranges) == Counter(r.calls)
-    assert set(r.calls) >= {"decode_many", "setup", "probe", "open",
-                            "extract", "verify"} | set(FIVE)
+    assert set(r.calls) >= {"decode_many", "setup", "probe", "extract",
+                            "verify"} | set(FIVE)
+    assert "open" not in r.calls
     # Opened in start order, the ranges nest as the stored spans do.
     assert [n for _, _, n in ranges] == [s.name for s in r.spans]
     stack = []
