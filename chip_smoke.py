@@ -154,7 +154,14 @@ Phases (one line each; any failure raises and exits non-zero):
      spectra bit for bit; its time at the fma_mp3.shard32 request's shape
      (32 clips, 36,800 frames) beside its bytes bound and the native
      extraction of the same clips, its registers, local memory and
-     ptxas's report of its stack and spills.
+     ptxas's report of its stack and spills;
+ 13. ``mp3_place``: M3 at the fma_mp3.shard32 request's shape (32 stereo
+     clips of 2,300 granules, 73,600 in all, in chunks of 4,096, trims at
+     every delay mod 4) bit for bit against its twin on the card and the
+     host's concatenate, transpose and trim of the same PCM; its time for
+     the request's 18 launches (CUDA events, and replayed in a graph)
+     beside its bytes bound, its registers, local memory, blocks per SM
+     and ptxas's report.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -254,6 +261,10 @@ KERNEL_INFO = {
                    "symphonia_tpu/ops/mp3_dense.py:346"),
     "mp3_synth": ("cuda", "symphonia_tpu_torch/csrc/mp3_dense.cu",
                   "symphonia_tpu/ops/mp3_dense.py:346"),
+    # M3 replaces no device program: the reference concatenates, transposes
+    # and trims Layer III PCM on the host.
+    "mp3_place": ("cuda", "symphonia_tpu_torch/csrc/mp3_place.cu",
+                  "none (symphonia_tpu/batch.py, host stitch)"),
     # A1 replaces K6 (:87, prologue on) and K7 (:112, prologue off).
     "aac_imdct": ("cuda", "symphonia_tpu_torch/csrc/aac_dense.cu",
                   "symphonia_tpu/ops/aac_dense.py:87"),
@@ -288,8 +299,8 @@ STEP_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "mp3_hybrid",
 # Phase 10's path (decode_many on the golden corpus): every kernel of
 # decode_many but V1, whose entry (house_lo.ogg) may be absent.
 GOLDEN_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate",
-               "mp3_entropy", "mp3_hybrid", "mp3_synth", "aac_imdct",
-               "aac_ola", "mpa_l12_synth")
+               "mp3_entropy", "mp3_hybrid", "mp3_synth", "mp3_place",
+               "aac_imdct", "aac_ola", "mpa_l12_synth")
 # Phase 6's full width: FLAC frames, samples, MP3 granules, AAC frames,
 # Vorbis blocks and block size.
 STEP_SIZE = dict(F=8192, N=4096, G=4096, A=16384, V=16384, n1=2048)
@@ -2841,19 +2852,19 @@ MP3_ENTROPY_POOL = 64
 MP3_ENTROPY_REQUEST = 32
 
 
-def _m0_ptxas() -> dict:
-    """ptxas's report of M0 (``-Xptxas -v``): its lines, registers, stack
-    frame and spill bytes."""
+def _ptxas(source: str) -> dict:
+    """ptxas's report of the kernels of ``csrc/<source>`` (``-Xptxas
+    -v``): its lines, registers, stack frame and spill bytes."""
     import re
     import tempfile
 
     from symphonia_tpu_torch.ops import _build
 
-    src = _build.CSRC / "mp3_entropy.cu"
+    src = _build.CSRC / source
     with tempfile.TemporaryDirectory() as tmp:
         p = _build._nvcc(_build.find_nvcc(), [
             "-Xptxas", "-v", "-c", str(src), "-o",
-            os.path.join(tmp, "m0.o")])
+            os.path.join(tmp, "k.o")])
     if p.returncode:
         raise RuntimeError(f"nvcc -Xptxas -v failed:\n{p.stderr}")
     lines = [ln.strip() for ln in p.stderr.splitlines() if ln.strip()]
@@ -2963,7 +2974,7 @@ def phase_mp3_entropy() -> dict:
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     _build.check("mp3_entropy attributes", fn(attrs))
-    ptx = _m0_ptxas()
+    ptx = _ptxas("mp3_entropy.cu")
     info = dict(
         shape=[F, pl.n_lanes], clips=len(req), frame_bytes=frame_bytes,
         ms=ms_, enqueue_ms=enq, bound_ms=bytes_ms, bound_by="bytes",
@@ -2975,6 +2986,103 @@ def phase_mp3_entropy() -> dict:
             ("registers", "local_bytes", "blocks_per_sm"), list(attrs)))},
         ptxas=ptx, launches=dict(_build.LAUNCHES), card=card_line())
     print("phase 12 mp3_entropy:", json.dumps(info), flush=True)
+    return info
+
+
+# Phase 13: the fma_mp3.shard32 request (32 stereo clips of 1,150 frames,
+# two granules a frame) in the decoder's chunks.
+MP3_PLACE_CLIPS = 32
+MP3_PLACE_GRANULES = 2300
+MP3_PLACE_CHUNK = 4096
+
+
+def phase_mp3_place(clips: int = MP3_PLACE_CLIPS,
+                    granules: int = MP3_PLACE_GRANULES,
+                    chunk: int = MP3_PLACE_CHUNK) -> dict:
+    """M3 ``mp3_place`` at the fma_mp3.shard32 request's shape: seeded PCM
+    [clips x granules, 2, 576] on the card, laid out chunk by chunk with
+    trims at every delay mod 4 (the LAME delay 1105, plus 0-3), bit for
+    bit against its twin on the card and against the host's concatenate,
+    transpose and ``_gapless_trim`` of the same PCM; its time for the
+    request's launches (CUDA events; a graph replay, the launch cost out)
+    beside its bytes bound (every kept sample read and written once), its
+    registers, local memory and blocks an SM, and ptxas's report."""
+    import ctypes
+
+    import torch
+
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import mp3_dense as md
+
+    dev = torch.device("cuda")
+    _build.reset_launches()
+    C = 2
+    counts = [granules] * clips
+    tracks = [SimpleNamespace(delay=1105 + k % 4, padding=1151 - k % 3)
+              for k in range(clips)]
+    bounds = [batch._trim_bounds(576 * n, t, True)
+              for n, t in zip(counts, tracks)]
+    table, size = md.place_table(counts, bounds, C)
+    G = sum(counts)
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    pcm = torch.randn((G, C, 576), generator=g, device=dev)
+    tab = torch.from_numpy(table).to(dev)
+    chunks = [(i, min(G, i + chunk)) for i in range(0, G, chunk)]
+    rows = [md.place_rows(table, i, j) for i, j in chunks]
+    out = torch.full((size,), float("nan"), device=dev)
+
+    def request():
+        for (i, j), r in zip(chunks, rows):
+            md.mp3_place(pcm[i:j], tab, out, i, r)
+
+    request()
+    twin = torch.full((size,), float("nan"), device=dev)
+    for (i, j), r in zip(chunks, rows):
+        md.mp3_place_plain(pcm[i:j], table, twin, i, r)
+    torch.cuda.synchronize()
+    got = out.cpu().numpy()
+
+    def same(a, b):
+        return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                     b.view(np.uint32))
+
+    bits_twin = same(got, twin.cpu().numpy()) and not np.isnan(got).any()
+    host = pcm.cpu().numpy()
+    bits_host, pos = True, 0
+    for n, t, (_, _, _, N, off) in zip(counts, tracks, table.tolist()):
+        want = batch._gapless_trim(
+            host[pos : pos + n].transpose(1, 0, 2).reshape(C, -1), t, True)
+        bits_host = bits_host and same(
+            got[off : off + C * N].reshape(C, N), want)
+        pos += n
+    launches = _build.LAUNCHES["mp3_place"]
+    ms_ = cuda_ms(request, 20)
+    graph = graph_ms(request, 10)
+    enq = enqueue_ms(request, 20)
+    bound_ms = 2 * 4 * size / HBM_BYTES_PER_S * 1e3
+    attrs = (ctypes.c_int * 3)()
+    fn = _build.lib().mp3_place_attributes
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    _build.check("mp3_place attributes", fn(attrs))
+    info = dict(
+        shape=[G, C, 576], clips=clips, chunks=len(chunks),
+        bytes_written=4 * size, bits_equal_twin=bits_twin,
+        bits_equal_host=bits_host, ms=ms_, graph_ms=graph, enqueue_ms=enq,
+        bound_ms=bound_ms, bound_by="bytes", share_of_bound=bound_ms / graph,
+        attributes={"mp3_place": dict(zip(
+            ("registers", "local_bytes", "blocks_per_sm"), list(attrs)))},
+        ptxas=_ptxas("mp3_place.cu"),
+        launches=dict(_build.LAUNCHES, mp3_place=launches),
+        card=card_line())
+    print("phase 13 mp3_place:", json.dumps(info), flush=True)
+    if not (bits_twin and bits_host):
+        raise AssertionError("mp3_place differs from its twin or from the "
+                             "host's layout")
+    if attrs[1] > 0:
+        raise AssertionError(f"mp3_place uses {attrs[1]} bytes of local "
+                             "memory (a spill)")
     return info
 
 
@@ -3051,13 +3159,19 @@ def main() -> int:
                                library_ms=None, **{k: m0[k] for k in (
                                    "ms", "bound_ms", "bound_by", "shape",
                                    "enqueue_ms", "attributes")})
+    m3 = timed("13", phase_mp3_place)
+    kern["mp3_place"] = dict(max_abs_err=0, plain_ms=None, library_ms=None,
+                             **{k: m3[k] for k in (
+                                 "ms", "graph_ms", "bound_ms", "bound_by",
+                                 "shape", "enqueue_ms", "bits_equal_twin",
+                                 "attributes")})
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
              "bench": bn["launches"], "soak": sk["launches"],
              "multichip": mc["launches"], "md5": m5["launches"],
-             "mp3_entropy": m0["launches"]}
+             "mp3_entropy": m0["launches"], "mp3_place": m3["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -3084,7 +3198,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

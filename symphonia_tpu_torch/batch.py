@@ -31,7 +31,7 @@ from __future__ import annotations
 import hashlib
 import logging
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ from .core.io import MediaSourceStream
 from .ops import flac_dense
 from .ops.aac_dense import LANE_KEYS, AacDense
 from .ops.aac_dense import reference_tables as aac_tables
+from .ops import mp3_dense
 from .ops.mp3_dense import (BLOCK_SHORT, L12Dense, Mp3Dense, l12_tables,
                              reference_tables)
 from .ops.vorbis_dense import VorbisDense, decode_packets_dense_multi
@@ -115,12 +116,20 @@ def _verify_host(samples: np.ndarray, si) -> Optional[bool]:
     return _flac_md5_ok(samples, si)
 
 
+def _trim_bounds(total: int, track, gapless: bool) -> Tuple[int, int]:
+    """The samples ``[start, end)`` of ``total`` that the gapless trim
+    keeps: the encoder delay and padding (both >= 0) cut, nothing without
+    ``gapless``."""
+    if not gapless:
+        return 0, total
+    start = min(track.delay, total)
+    return start, max(start, total - track.padding)
+
+
 def _gapless_trim(pcm: np.ndarray, track, gapless: bool) -> np.ndarray:
     if not gapless:
         return pcm
-    total = pcm.shape[1]
-    start = min(track.delay, total)
-    end = max(start, total - track.padding)
+    start, end = _trim_bounds(pcm.shape[1], track, gapless)
     return pcm[:, start:end]
 
 
@@ -427,7 +436,9 @@ class Mp3BatchDecoder(_BatchDecoder):
     of a call in one launch) where the device is CUDA and the native C++
     one otherwise or for a clip M0 rejects, then the granule-parallel
     dense stage (:class:`ops.mp3_dense.Mp3Dense`) over the merged clips in
-    chained chunks of ``granule_chunk`` granules (a memory bound). Layers
+    chained chunks of ``granule_chunk`` granules (a memory bound), each
+    chunk's PCM laid out on the device as the clips' trimmed planar
+    arrays (M3, ``mp3_place``), which come down one a clip. Layers
     I and II, one stream at a time: the native per-frame bitstream stage,
     then the frame-parallel polyphase stage
     (:class:`ops.mp3_dense.L12Dense`) in chained chunks of
@@ -518,44 +529,74 @@ class Mp3BatchDecoder(_BatchDecoder):
                             bt[lo:hi].view(-1, C), mixed[lo:hi].view(-1, C)))
         return out
 
-    def _dense_chunked(self, spectra, bt, mixed, boundary=None) -> np.ndarray:
-        """[G, C, 576] spectra -> [G, C, 576] PCM, chunk by chunk with the
-        carried state kept on the device; the lanes are host arrays, or
-        tensors on the device already (M0's). Its input's lanes (granule x
-        channel) are counted as ``mp3_lanes``, the short-block ones as
-        ``mp3_short_lanes``."""
-        G, C = spectra.shape[:2]
+    def _decode_layer3(self, group) -> List[np.ndarray]:
+        """Layer III clips of one channel count C (``group``: (reader,
+        spectra [G_i, C, 576], bt [G_i, C], mixed [G_i, C]) a clip, host
+        arrays or views of M0's output on the card) -> each clip's planar
+        PCM [C, N_i], trimmed by :func:`_trim_bounds`, in an array of its
+        own. The clips' granule lanes share the dense stage's chained
+        chunks of ``granule_chunk`` granules, the carried state kept on
+        the device; a per-granule boundary mask breaks the hybrid and
+        polyphase chains at each clip's first granule, so merged output
+        equals per-clip output. After each chunk's M2, M3 (``mp3_place``)
+        lays the chunk's PCM into one buffer on the device, each clip as
+        [C, N_i] (:func:`ops.mp3_dense.place_table`); then each clip's
+        slice comes down on its own. Counted: the lanes (granule x
+        channel) as ``mp3_lanes``, the short-block ones as
+        ``mp3_short_lanes``; the clips M3 laid out as
+        ``mp3_placed_streams``, the bytes it wrote as
+        ``mp3_placed_bytes``."""
+        C = int(group[0][1].shape[1])
+        dev = self.device
+        on_device = isinstance(group[0][1], torch.Tensor)
+        with trace.span("pack"):
+            join = _joined if on_device else np.concatenate
+            spectra, bt, mixed = [join([g[k] for g in group])
+                                  for k in (1, 2, 3)]
+            counts = np.array([g[1].shape[0] for g in group], np.int64)
+            boundary = np.zeros(spectra.shape[0], bool)
+            starts = np.cumsum(counts) - counts
+            boundary[starts[counts > 0]] = True
+            table, size = mp3_dense.place_table(counts, [
+                _trim_bounds(576 * int(n), g[0].default_track(), self.gapless)
+                for g, n in zip(group, counts)], C)
+        G = spectra.shape[0]
         if trace.enabled():
             trace.count("mp3_lanes", G * C)
             trace.count("mp3_short_lanes", int((bt == BLOCK_SHORT).sum()))
-        on_device = isinstance(spectra, torch.Tensor)
-        dev = self.device
-        parts = []
+        # The table goes up with the group's boundary mask; the twin reads
+        # it where numpy built it.
+        cpu = dev.type == "cpu"
+        bd_all, *tab = trace.to_device(dev, boundary,
+                                       *([] if cpu else [table]))
+        tab = torch.from_numpy(table) if cpu else tab[0]
+        out = torch.empty(size, dtype=torch.float32, device=dev)
         ht = st = None
         for i in range(0, G, self.granule_chunk):
             j = min(G, i + self.granule_chunk)
-            if on_device:
-                x, b, m = spectra[i:j], bt[i:j], mixed[i:j]
-                bd = ([] if boundary is None
-                      else trace.to_device(dev, boundary[i:j]))
-            else:
-                lanes = [spectra[i:j], bt[i:j], mixed[i:j]]
-                if boundary is not None:
-                    lanes.append(boundary[i:j])
-                x, b, m, *bd = trace.to_device(dev, *lanes)
+            x, b, m = (spectra[i:j], bt[i:j], mixed[i:j]) if on_device else \
+                trace.to_device(dev, spectra[i:j], bt[i:j], mixed[i:j])
+            bd = bd_all[i:j]
+            rows = mp3_dense.place_rows(table, i, j)
             with trace.span("enqueue"):
-                out, ht, st = self.dense(x, b, m, ht, st,
-                                         boundary=bd[0] if bd else None)
-            parts.append(trace.to_host(out))
-        with trace.span("stitch"):
-            return (np.concatenate(parts, axis=0) if parts
-                    else np.zeros((0, C, 576), np.float32))
+                pcm, ht, st = self.dense(x, b, m, ht, st, boundary=bd)
+                mp3_dense.mp3_place(pcm, tab, out, i, rows)
+        if trace.enabled():
+            trace.count("mp3_placed_streams", len(group))
+            trace.count("mp3_placed_bytes", 4 * size)
+        res = []
+        for _, _, _, n, off in table.tolist():
+            clip = out[off : off + C * n].view(C, n)
+            # On the CPU a tensor's host array shares its memory: each
+            # caller owns its clip's.
+            res.append(trace.to_host(clip.clone() if cpu else clip))
+        return res
 
     def _decode_stream(self, data: bytes, reader) -> DecodedAudio:
         """One opened stream on its own: Layer I/II (:meth:`_decode_l12`),
         or a Layer III clip whose entropy the merged pass did not give (the
-        host's extraction, then the dense stage alone), else the counted
-        host route."""
+        host's extraction, then :meth:`_decode_layer3` as a group of one),
+        else the counted host route."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
@@ -569,12 +610,9 @@ class Mp3BatchDecoder(_BatchDecoder):
         if got is None:
             trace.count("mp3_host_streams", 1)
             return _host_decode(data, self.gapless)
-        pcm = self._dense_chunked(*got)
-        C = h.n_channels
+        pcm, = self._decode_layer3([(reader,) + got])
         with trace.span("stitch"):
-            pcm = pcm.transpose(1, 0, 2).reshape(C, -1)
-            pcm = _gapless_trim(pcm, reader.default_track(), self.gapless)
-        return DecodedAudio(pcm, h.sample_rate, 32)
+            return DecodedAudio(pcm, h.sample_rate, 32)
 
     def _decode_l12(self, data: bytes, reader) -> DecodedAudio:
         """Layer I/II: the native bitstream stage frame by frame, then L1
@@ -648,12 +686,11 @@ class Mp3BatchDecoder(_BatchDecoder):
     def _decode_opened(self, datas: Sequence[bytes],
                        readers) -> List[DecodedAudio]:
         """Decode MPEG audio streams already opened (``readers``, one
-        ``MpaReader`` a stream) with merged dispatches: the granule lanes
-        of every Layer III stream with the same channel count share the
-        dense-stage chunks; a per-granule boundary mask breaks the hybrid
-        and polyphase chains at file starts, so merged output equals
-        per-file output. The other streams take :meth:`_decode_stream`, in
-        the callers' order, before the merged dense stage of the rest."""
+        ``MpaReader`` a stream) with merged dispatches: the Layer III
+        streams of one channel count take :meth:`_decode_layer3` as one
+        group, so merged output equals per-file output. The other streams
+        take :meth:`_decode_stream`, in the callers' order, before the
+        merged groups."""
         from . import native
         from .codecs.mpa_common import LAYER3
 
@@ -668,25 +705,10 @@ class Mp3BatchDecoder(_BatchDecoder):
             else:
                 by_c.setdefault(int(got[i][0].shape[1]), []).append(
                     (i, reader) + got[i])
-        for C, group in by_c.items():
-            with trace.span("pack"):
-                join = (np.concatenate if isinstance(group[0][2], np.ndarray)
-                        else _joined)
-                spectra, bt, mixed = [join([g[k] for g in group])
-                                      for k in (2, 3, 4)]
-                counts = [g[2].shape[0] for g in group]
-                boundary = np.zeros(spectra.shape[0], bool)
-                starts = np.cumsum([0] + counts[:-1])
-                boundary[starts[np.asarray(counts) > 0]] = True
-            pcm_all = self._dense_chunked(spectra, bt, mixed, boundary)
+        for group in by_c.values():
+            pcms = self._decode_layer3([g[1:] for g in group])
             with trace.span("stitch"):
-                pos = 0
-                for (idx, reader, *_), n_g in zip(group, counts):
-                    pcm = pcm_all[pos : pos + n_g].transpose(1, 0, 2).reshape(
-                        C, -1)
-                    pos += n_g
-                    pcm = _gapless_trim(pcm, reader.default_track(),
-                                        self.gapless)
+                for (idx, reader, *_), pcm in zip(group, pcms):
                     results[idx] = DecodedAudio(
                         pcm, reader.header.sample_rate, 32)
         return results

@@ -36,7 +36,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "flac_md5",
-           "mp3_entropy", "mp3_hybrid", "mp3_synth",
+           "mp3_entropy", "mp3_hybrid", "mp3_synth", "mp3_place",
            "aac_imdct", "aac_dequant", "aac_ola", "vorbis_imdct",
            "mpa_l12_synth", "vorbis_lap", "pcm_unpack", "rice_decode")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -68,6 +68,8 @@ _SIGNATURES = {
     # status, stream
     "mp3_entropy_launch": [_P, _I64, _P, _I64, _P, _I] + [_P] * 4
                           + [_I64] + [_P] * 4,
+    # pcm, g0, g, C, table, K, k0, k1, out, out_n, stream
+    "mp3_place_launch": [_P, _I64, _I, _I, _P, _I, _I, _I, _P, _I64, _P],
     # x, bt, mixed, boundary, tail0, T, cs, ca, finv, S, tail_out, G, C,
     # run, stream
     "mp3_hybrid_launch": [_P] * 11 + [_I, _I, _I, _P],

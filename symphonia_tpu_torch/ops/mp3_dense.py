@@ -24,6 +24,12 @@ Two kernels:
   blocks are those two factors; the factored form, with N's mirrored and
   folded rows, does 32x fewer multiply-adds.
 
+A third, ``mp3_place`` (M3), replaces no TPU program: after each chunk's
+M2 it copies the chunk's PCM into one buffer of a merged group's output,
+each clip as ``[C, N]`` with its encoder delay and padding already cut
+(:func:`place_table`), so that the host moves no sample (the reference
+concatenates, transposes and trims on the host).
+
 Layer I/II (``:273``, ``l12_dense_batch_jax``) has no hybrid stage: its
 bitstream stage's subband samples ``sb [F, C, 32, T]`` go straight into the
 same synthesis, for T = 12 (Layer I) or 36 (Layer II), and the 480-sample
@@ -454,6 +460,59 @@ def l12_synth_plain(sb, matrixing, window, synth_tail0):
                            synth_tail0, None)
 
 
+def place_table(counts, bounds, C: int) -> Tuple[np.ndarray, int]:
+    """M3's table for a group of clips of ``C`` channels, back to back in
+    its granule order: ``counts`` each clip's granules, ``bounds`` each
+    one's kept samples ``[start, end)`` of its ``G x 576``. Returns the
+    int64 ``[K, 5]`` table (first granule, granules, trim start, trimmed
+    length N, output offset) and the buffer's floats: clip k lies at
+    ``out[offset : offset + C * N]`` as ``[C, N]``."""
+    counts = np.asarray(counts, np.int64).reshape(-1)
+    bounds = np.asarray(bounds, np.int64).reshape(-1, 2)
+    K = len(counts)
+    t = np.zeros((K, 5), np.int64)
+    t[:, 1] = counts
+    t[:, 2] = bounds[:, 0]
+    t[:, 3] = bounds[:, 1] - bounds[:, 0]
+    sizes = C * t[:, 3]
+    if K:
+        t[1:, 0] = np.cumsum(counts)[:-1]
+        t[1:, 4] = np.cumsum(sizes)[:-1]
+    return t, int(sizes.sum())
+
+
+def place_rows(table: np.ndarray, g0: int, g1: int) -> Tuple[int, int]:
+    """The rows ``k0 .. k1`` of ``table`` whose granules meet the chunk
+    ``[g0, g1)`` (those of a clip with no granule among them)."""
+    first, count = table[:, 0], table[:, 1]
+    return (int(np.searchsorted(first + count, g0, side="right")),
+            int(np.searchsorted(first, g1, side="left")))
+
+
+def mp3_place_plain(pcm, table, out, g0: int, rows: Tuple[int, int]):
+    """Twin of M3: the chunk ``pcm [g, C, 576]`` (granules ``g0 .. g0 + g``
+    of its group) into ``out``, each of the rows ``rows`` of ``table`` (see
+    :func:`place_table`) as its clip's ``[C, N]`` from sample ``start`` of
+    its ``[C, G x 576]``; returns ``out``."""
+    g, C, _ = pcm.shape
+    for k in range(*rows):
+        first, G, start, N, off = (int(v) for v in table[k])
+        if (G < 0 or start < 0 or N <= 0 or start > G * 576 - N or off < 0
+                or off > out.numel() - C * N):
+            continue  # a row the kernel skips too
+        lo, hi = max(g0, first), min(g0 + g, first + G)
+        if hi <= lo:
+            continue
+        s0 = (lo - first) * 576  # the chunk's first sample of the clip
+        a, b = max(s0, start), min((hi - first) * 576, start + N)
+        if b <= a:
+            continue
+        seg = pcm[lo - g0 : hi - g0].permute(1, 0, 2).reshape(C, -1)
+        out[off : off + C * N].view(C, N)[:, a - start : b - start] = \
+            seg[:, a - s0 : b - s0]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -604,6 +663,42 @@ def mpa_l12_synth(sb, matrixing, window, synth_tail0):
     _build.LAUNCHES["mpa_l12_synth"] += 1
     _build.check("mpa_l12_synth", err)
     return pcm, tail
+
+
+def mp3_place(pcm, table, out, g0: int, rows: Tuple[int, int]):
+    """M3 wrapper: lays the chunk ``pcm [g, C, 576]`` (f32, granules ``g0
+    .. g0 + g`` of its group) into ``out`` (f32, 1-D) by the rows ``k0 ..
+    k1`` of ``table`` (int64 ``[K, 5]``, :func:`place_table`) that meet it
+    (:func:`place_rows`); returns ``out``. The twin runs for CPU tensors,
+    the kernel for CUDA ones; both copy, bit for bit."""
+    k0, k1 = (int(r) for r in rows)
+    tensors = (pcm, table, out)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"pcm, table and out on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    kind = _build.device_type(pcm)
+    if (pcm.dim() != 3 or pcm.shape[2] != 576 or pcm.dtype != torch.float32
+            or table.dim() != 2 or table.shape[1] != 5
+            or table.dtype != torch.int64
+            or out.dim() != 1 or out.dtype != torch.float32
+            or not 0 <= k0 <= k1 <= table.shape[0] or int(g0) < 0):
+        raise ValueError("f32 pcm [g, C, 576], int64 table [K, 5], f32 out "
+                         "[n], 0 <= k0 <= k1 <= K, g0 >= 0")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("mp3_place's tensors must be contiguous")
+    if pcm.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("pcm and out must be 16-byte aligned")
+    g, C, _ = pcm.shape
+    if g == 0 or k0 == k1:
+        return out
+    if kind == "cpu":
+        return mp3_place_plain(pcm, table, out, int(g0), (k0, k1))
+    err = _build.lib().mp3_place_launch(
+        pcm.data_ptr(), int(g0), g, C, table.data_ptr(), table.shape[0], k0,
+        k1, out.data_ptr(), out.numel(), _build.stream_ptr(pcm.device))
+    _build.LAUNCHES["mp3_place"] += 1
+    _build.check("mp3_place", err)
+    return out
 
 
 # ---------------------------------------------------------------------------

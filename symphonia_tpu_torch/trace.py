@@ -32,7 +32,10 @@ channel lanes sent to M1 and M2, and those of short blocks, counted from
 the extraction's output, not from the launches); ``mp3_card_streams``,
 ``mp3_host_streams`` (host entropy: one a Layer III clip, by where its
 entropy ran, M0 on the card or the host's extraction), ``mp3_card_bytes``
-and ``mp3_card_lanes`` (the frame bytes M0 read and the lanes it wrote).
+and ``mp3_card_lanes`` (the frame bytes M0 read and the lanes it wrote);
+``mp3_placed_streams`` and ``mp3_placed_bytes`` (stitch / verify: one a
+Layer III clip whose trimmed planar PCM M3 ``mp3_place`` laid out on the
+device, and the bytes it wrote).
 """
 
 from __future__ import annotations

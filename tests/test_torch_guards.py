@@ -404,12 +404,12 @@ def test_build_hash_follows_sources():
 
 @pytest.mark.parametrize("kernel", _build.KERNELS)
 def test_every_kernel_has_a_c_entry_point(kernel):
-    # V2, P1, R1, F1's helper, F3 and M0 among them: a counted launch and
-    # a declared signature.
-    assert len(_build.KERNELS) == 15
+    # V2, P1, R1, F1's helper, F3, M0 and M3 among them: a counted launch
+    # and a declared signature.
+    assert len(_build.KERNELS) == 16
     assert {"vorbis_lap", "pcm_unpack", "rice_decode",
             "flac_lane_order", "flac_md5",
-            "mp3_entropy"} <= set(_build.KERNELS)
+            "mp3_entropy", "mp3_place"} <= set(_build.KERNELS)
     assert f"{kernel}_launch" in _build._SIGNATURES
     assert any(f"{kernel}_launch(" in s.read_text()
                for s in _build._sources() if s.suffix == ".cu")
@@ -428,6 +428,7 @@ _ATTRIBUTE_EXPORTS = {
     "pcm_unpack_attributes": "pcm.cu",
     "rice_decode_attributes": "rice_device.cu",
     "mp3_entropy_attributes": "mp3_entropy.cu",
+    "mp3_place_attributes": "mp3_place.cu",
 }
 
 
@@ -436,12 +437,12 @@ def test_attribute_exports_have_c_entry_points(export):
     # Each is an extern "C" function of its kernel's source, on
     # simt_gemm::attributes or the CUDA runtime's queries, and
     # chip_smoke.py reads it.
-    assert len(_ATTRIBUTE_EXPORTS) == 10
+    assert len(_ATTRIBUTE_EXPORTS) == 11
     src = (_build.CSRC / _ATTRIBUTE_EXPORTS[export]).read_text()
     assert f'extern "C" int {export}(' in src
     smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert f".{export}" in smoke
-    assert len(_build.KERNELS) == 15
+    assert len(_build.KERNELS) == 16
 
 
 def test_launch_errors_raise():
