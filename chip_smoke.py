@@ -161,7 +161,15 @@ Phases (one line each; any failure raises and exits non-zero):
      host's concatenate, transpose and trim of the same PCM; its time for
      the request's 18 launches (CUDA events, and replayed in a graph)
      beside its bytes bound, its registers, local memory, blocks per SM
-     and ptxas's report.
+     and ptxas's report;
+ 14. ``mp3_speech``: the MP3 path at the commonvoice_mp3.online request
+     (one 48 kHz mono 64 kbit/s clip near the pool's mean of ~5 s, ~212
+     frames of 192 bytes, the reservoir reaching back over several
+     frames): M0 over a 16-clip pool and over the request against
+     ``native.mp3_extract`` bit for bit; on its output M1 and M2 at C = 1
+     in one chunk against their twins, M3 against its twin and the host
+     layout bit for bit, the chain's clip against ``decode_many``'s bit
+     for bit; each kernel's time beside its bound, M1 at every run length.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -3086,6 +3094,182 @@ def phase_mp3_place(clips: int = MP3_PLACE_CLIPS,
     return info
 
 
+# Phase 14: the commonvoice_mp3.online request, one 48 kHz mono clip of
+# about 5 s (~212 frames of 192 bytes, ~424 granules at C = 1), from a
+# pool of MP3_SPEECH_POOL clips of the configuration.
+MP3_SPEECH_POOL = 16
+
+
+def _reservoir_reach(reader) -> tuple:
+    """The largest ``main_data_begin`` of a mono MPEG-1 Layer III clip
+    without CRC (its 9 bits right after the header), in bytes and in
+    frames of main data (a frame's bytes less the header and the 17
+    bytes of side info)."""
+    buf = reader._buf
+    mdb = [(int(buf[o + 4]) << 1) | (int(buf[o + 5]) >> 7)
+           for o in reader._offsets]
+    main = float(np.mean(reader._sizes)) - 4 - 17
+    return max(mdb), max(mdb) / main
+
+
+def phase_mp3_speech(pool_size: int = MP3_SPEECH_POOL,
+                     device: str = "cuda") -> dict:
+    """The MP3 path's four kernels at the commonvoice_mp3.online request:
+    a seeded pool of the configuration's clips (48 kHz mono 64 kbit/s,
+    lead-in and tail silences that fill the reservoir, short blocks at
+    onsets), and of it the clip nearest the pool's mean length as the
+    request. M0 over the pool in one launch and over the request alone
+    against ``native.mp3_extract``: statuses, flags and spectra bit for
+    bit. On the request's M0 output, as ``decode_many`` chains them (one
+    chunk, C = 1, a boundary at the first granule): M1 and M2 against
+    their twins on the card (within 2e-5 of the larger of 1 and the
+    twin's peak, bit-equality reported), M3 against its twin and the
+    host's transpose and ``_gapless_trim``, bit for bit, and the chain's
+    clip against ``decode_many``'s, bit for bit. Each kernel's time
+    (CUDA events; M1, M2 and M3 also as a graph replay, M1 at every run
+    length) beside its bound, and how far the clips' ``main_data_begin``
+    reaches back. ``device`` is "cuda" but for a rehearsal on the
+    CPU."""
+    import torch
+
+    from benchmark.gen import mp3_speech as gen
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import mp3_dense as md
+    from symphonia_tpu_torch.ops import mp3_entropy as me
+    from symphonia_tpu_torch.testing import mp3_entropy_streams as ms
+
+    dev = torch.device(device)
+    _build.reset_launches()
+    tabs = me.device_tables(dev)
+    cfg = json.loads(open(os.path.join(
+        ROOT, "benchmark", "configs", "commonvoice_mp3.json")).read())
+    pool = gen.make_pool(cfg, pool_size, SEED + 24, device=dev)
+    datas = [s.data for s in pool]
+    mean = float(np.mean([s.n_samples for s in pool]))
+    k = int(np.argmin([abs(s.n_samples - mean) for s in pool]))
+    checks = {}
+    pl, rs, _, out = _m0_run(datas, tabs, dev)
+    checks["speech_pool"] = ms.compare(pl, ms.expected(rs), *out)
+    reach = [_reservoir_reach(r) for r in rs]
+    pl, rs, inputs, out = _m0_run([datas[k]], tabs, dev)
+    checks["request"] = ms.compare(pl, ms.expected(rs), *out)
+    for name, v in checks.items():
+        print(f"phase 14 mp3_speech {name}: {json.dumps(v)}", flush=True)
+    bad = sorted(name for name, v in checks.items() if not v["ok"])
+    if bad:
+        raise AssertionError(f"mp3_entropy differs from the native "
+                             f"extraction on {bad}")
+
+    # The request's lanes on the card, as _card_entropy views them.
+    spectra, bt, mixed, status = me.mp3_entropy(*inputs, tabs, pl.n_lanes)
+    if not pl.clean(status.cpu().numpy()).all():
+        raise AssertionError("mp3_entropy: the request's clip is not clean")
+    lo, hi = int(pl.lane[0]), int(pl.lane[0] + pl.lanes[0])
+    x, b, m = (spectra[lo:hi].view(-1, 1, 576), bt[lo:hi].view(-1, 1),
+               mixed[lo:hi].view(-1, 1))
+    G = x.shape[0]
+    dense = md.Mp3Dense.from_numpy(md.reference_tables(), dev)
+    bd = torch.zeros(G, dtype=torch.bool, device=dev)
+    bd[0] = True
+
+    def err(pairs):
+        e = max(float((a - w).abs().max()) for a, w in pairs)
+        peak = float(pairs[0][1].abs().max())
+        return e, e <= 2e-5 * max(1.0, peak), all(
+            _bits_equal(a, w) for a, w in pairs)
+
+    hyb = (x, b, m, bd, None, dense.hybrid, dense.cs, dense.ca, dense.finv)
+    S, tail = md.mp3_hybrid(*hyb)
+    S_ref, tail_ref = md.mp3_hybrid_plain(*hyb)
+    e_m1, ok_m1, bits_m1 = err([(S, S_ref), (tail, tail_ref)])
+    syn = (S, dense.matrixing, dense.window, None, bd)
+    pcm, st = md.mp3_synth(*syn)
+    pcm_ref, st_ref = md.mp3_synth_plain(*syn)
+    e_m2, ok_m2, bits_m2 = err([(pcm, pcm_ref), (st, st_ref)])
+
+    track = rs[0].default_track()
+    table, size = md.place_table(
+        [G], [batch._trim_bounds(576 * G, track, True)], 1)
+    tab = torch.from_numpy(table).to(dev)
+    rows = md.place_rows(table, 0, G)
+    placed = torch.full((size,), float("nan"), device=dev)
+    md.mp3_place(pcm, tab, placed, 0, rows)
+    twin = md.mp3_place_plain(pcm, table, torch.full(
+        (size,), float("nan"), device=dev), 0, rows)
+    want = batch._gapless_trim(pcm.cpu().numpy().transpose(1, 0, 2)
+                               .reshape(1, -1), track, True)
+    got = placed.cpu().numpy()
+    bits_m3_twin = (_bits_equal(placed, twin)
+                    and not np.isnan(got).any())
+    bits_m3_host = np.array_equal(got.reshape(1, -1).view(np.uint32),
+                                  want.view(np.uint32))
+    decoded = batch.decode_many([datas[k]], device=dev)[0].samples
+    bits_decode = np.array_equal(decoded.view(np.uint32),
+                                 got.reshape(decoded.shape).view(np.uint32)
+                                 ) if decoded.size == got.size else False
+
+    # Times and bounds at the request's shape.
+    F = int(pl.frames.shape[0])
+    frame_bytes = int(pl.frames[:, 1].sum())
+
+    def m0():
+        return me.mp3_entropy(*inputs, tabs, pl.n_lanes)
+
+    def m3():
+        return md.mp3_place(pcm, tab, placed, 0, rows)
+
+    kernels = {
+        "mp3_entropy": dict(
+            shape=[F, pl.n_lanes], ms=cuda_ms(m0, 20),
+            enqueue_ms=enqueue_ms(m0, 20), bound_by="bytes",
+            bound_ms=(frame_bytes + pl.n_lanes * (576 * 4 + 8))
+            / HBM_BYTES_PER_S * 1e3),
+        "mp3_hybrid": dict(
+            shape=[G, 1, 576], max_abs_err=e_m1, bits_equal_twin=bits_m1,
+            run=md.run_length(G, 1), ms=cuda_ms(lambda: md.mp3_hybrid(*hyb),
+                                                20),
+            graph_ms=graph_ms(lambda: md.mp3_hybrid(*hyb), 20),
+            enqueue_ms=enqueue_ms(lambda: md.mp3_hybrid(*hyb), 20),
+            graph_ms_by_run={f"run{r}": graph_ms(
+                lambda: md.mp3_hybrid(*hyb, run=r), 20)
+                for r in md.RUN_LENGTHS},
+            **bound(*work_mp3_hybrid(G, 1))),
+        "mp3_synth": dict(
+            shape=[G, 1, 576], max_abs_err=e_m2, bits_equal_twin=bits_m2,
+            ms=cuda_ms(lambda: md.mp3_synth(*syn), 20),
+            graph_ms=graph_ms(lambda: md.mp3_synth(*syn), 20),
+            enqueue_ms=enqueue_ms(lambda: md.mp3_synth(*syn), 20),
+            **bound(*work_mp3_synth(G, 1))),
+        "mp3_place": dict(
+            shape=[G, 1, 576], bits_equal_twin=bits_m3_twin,
+            bits_equal_host=bits_m3_host, ms=cuda_ms(m3, 20),
+            graph_ms=graph_ms(m3, 20), enqueue_ms=enqueue_ms(m3, 20),
+            bound_ms=2 * 4 * size / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes"),
+    }
+    info = dict(
+        clip=dict(index=k, seconds=pool[k].seconds, frames=F, granules=G,
+                  frame_bytes=frame_bytes, samples=size,
+                  reservoir_bytes=reach[k][0],
+                  reservoir_frames=reach[k][1]),
+        pool=dict(clips=pool_size, mean_s=mean / gen.SAMPLE_RATE,
+                  reservoir_bytes_max=max(r[0] for r in reach),
+                  reservoir_frames_max=max(r[1] for r in reach)),
+        checked={n: {f: v[f] for f in ("clips", "frames", "lanes", "values",
+                                       "ulp1")} for n, v in checks.items()},
+        decode_many_bits_equal=bits_decode, kernels=kernels,
+        launches=dict(_build.LAUNCHES), card=card_line())
+    print("phase 14 mp3_speech:", json.dumps(info), flush=True)
+    if not (ok_m1 and ok_m2):
+        raise AssertionError(f"mp3 kernels vs twins at the speech request: "
+                             f"M1 {e_m1} M2 {e_m2}")
+    if not (bits_m3_twin and bits_m3_host and bits_decode):
+        raise AssertionError("mp3_place or decode_many differs at the "
+                             "speech request")
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -3165,13 +3349,15 @@ def main() -> int:
                                  "ms", "graph_ms", "bound_ms", "bound_by",
                                  "shape", "enqueue_ms", "bits_equal_twin",
                                  "attributes")})
+    m4 = timed("14", phase_mp3_speech)
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
              "entry_step_handoff": st["handoff_launches"],
              "bench": bn["launches"], "soak": sk["launches"],
              "multichip": mc["launches"], "md5": m5["launches"],
-             "mp3_entropy": m0["launches"], "mp3_place": m3["launches"]}
+             "mp3_entropy": m0["launches"], "mp3_place": m3["launches"],
+             "mp3_speech": m4["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -3198,7 +3384,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

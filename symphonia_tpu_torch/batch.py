@@ -454,14 +454,20 @@ class Mp3BatchDecoder(_BatchDecoder):
 
     @property
     def dense(self) -> Mp3Dense:
+        """Layer III's constant operators, built and uploaded at first use
+        (span ``tables``)."""
         if self._dense is None:
-            self._dense = Mp3Dense.from_numpy(reference_tables(), self.device)
+            with trace.span("tables"):
+                self._dense = Mp3Dense.from_numpy(reference_tables(),
+                                                  self.device)
         return self._dense
 
     @property
     def l12(self) -> L12Dense:
+        """Layer I/II's, as :attr:`dense`."""
         if self._l12 is None:
-            self._l12 = L12Dense.from_numpy(l12_tables(), self.device)
+            with trace.span("tables"):
+                self._l12 = L12Dense.from_numpy(l12_tables(), self.device)
         return self._l12
 
     @staticmethod

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from . import _build
 
 BLOCK_LONG = 0
@@ -706,6 +707,15 @@ def mp3_place(pcm, table, out, g0: int, rows: Tuple[int, int]):
 # ---------------------------------------------------------------------------
 
 
+def _upload(tables: Dict[str, np.ndarray], keys, device) -> list:
+    """``tables[k]`` for each of ``keys`` as float32 on ``device``, each a
+    copy of its own, through :func:`trace.to_device`; their bytes counted
+    as ``mp3_table_bytes``."""
+    arrays = [np.array(tables[k], np.float32) for k in keys]
+    trace.count("mp3_table_bytes", sum(a.nbytes for a in arrays))
+    return trace.to_device(torch.device(device), *arrays)
+
+
 class Mp3Dense(nn.Module):
     """The Layer III dense stage with its constant operators as buffers.
 
@@ -724,12 +734,10 @@ class Mp3Dense(nn.Module):
 
     @classmethod
     def from_numpy(cls, tables: Dict[str, np.ndarray], device) -> "Mp3Dense":
-        def t(k):
-            return torch.from_numpy(np.ascontiguousarray(
-                tables[k], dtype=np.float32))
-
-        return cls(t("hybrid"), t("cs"), t("ca"), t("finv"), t("matrixing"),
-                   t("window")).to(torch.device(device))
+        """The module with ``tables`` uploaded to ``device``: their bytes
+        counted as ``mp3_table_bytes`` (and ``h2d_bytes``)."""
+        return cls(*_upload(tables, ("hybrid", "cs", "ca", "finv",
+                                     "matrixing", "window"), device))
 
     @staticmethod
     def state_from_numpy(hybrid_tail: np.ndarray, synth_tail: np.ndarray,
@@ -769,9 +777,8 @@ class L12Dense(nn.Module):
 
     @classmethod
     def from_numpy(cls, tables: Dict[str, np.ndarray], device) -> "L12Dense":
-        return cls(*(torch.from_numpy(np.array(tables[k], np.float32))
-                     for k in ("matrixing", "window"))).to(
-                         torch.device(device))
+        """As :meth:`Mp3Dense.from_numpy`."""
+        return cls(*_upload(tables, ("matrixing", "window"), device))
 
     @staticmethod
     def state_from_numpy(synth_tail: np.ndarray, device) -> torch.Tensor:

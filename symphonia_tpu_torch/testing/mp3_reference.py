@@ -3,18 +3,21 @@
 The reference the decode tests hold the port to: it starts from the
 integers an encoder wrote (``mp3_lame_builder.Granules``: quantised
 spectra in bitstream order, gains, scalefactors, block types, mid/side
-flags), not from the bytes, so a Huffman, reservoir or scalefactor fault
-of a decoder shows as a wrong sample. It follows ISO/IEC 11172-3 2.4.3.4
-step by step, in plain ``torch`` float64 on any device:
+flags; one or two channels), not from the bytes, so a Huffman, reservoir,
+scalefactor or band-table fault of a decoder shows as a wrong sample. It
+follows ISO/IEC 11172-3 2.4.3.4 step by step, in plain ``torch`` float64
+on any device:
 
 1. requantisation, sign(is) |is|^(4/3) 2^((global_gain - 210) / 4) with
    the scalefactor term 2^(-(1 + scalefac_scale) / 2 (sf + preflag
    pretab)) of long bands, and with 2^(-2 subblock_gain) and the window's
-   scalefactor in short bands (band 21 long and 12 short carry none);
+   scalefactor in short bands (band 21 long and 12 short carry none), the
+   bands those of the stream's sample rate (table B.8: 32, 44.1, 48 kHz);
 2. short-block reordering, window w's line f of the bitstream's band
    order to position 3 f + w;
-3. mid/side: L = (M + S) / sqrt 2, R = (M - S) / sqrt 2 on all 576 lines
-   (intensity stereo is never on in these streams);
+3. mid/side in a stereo stream: L = (M + S) / sqrt 2, R = (M - S) /
+   sqrt 2 on all 576 lines (intensity stereo is never on in these
+   streams); a mono stream has none;
 4. the aliasing butterflies at the 31 subband edges of long blocks;
 5. the 36-point IMDCT with the window of each long block type, or three
    12-point IMDCTs with the short window laid at 6, 12 and 18;
@@ -41,9 +44,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SFB_LONG = (0, 4, 8, 12, 16, 20, 24, 30, 36, 44, 52, 62, 74, 90, 110, 134,
-            162, 196, 238, 288, 342, 418, 576)
-SFB_SHORT = (0, 4, 8, 12, 16, 22, 30, 40, 52, 66, 84, 106, 136, 192)
+# Scalefactor band edges of each MPEG-1 sample rate (ISO/IEC 11172-3
+# table B.8): long bands over 576 lines, short bands over a window's 192.
+SFB = {
+    44100: ((0, 4, 8, 12, 16, 20, 24, 30, 36, 44, 52, 62, 74, 90, 110, 134,
+             162, 196, 238, 288, 342, 418, 576),
+            (0, 4, 8, 12, 16, 22, 30, 40, 52, 66, 84, 106, 136, 192)),
+    48000: ((0, 4, 8, 12, 16, 20, 24, 30, 36, 42, 50, 60, 72, 88, 106, 128,
+             156, 190, 230, 276, 330, 384, 576),
+            (0, 4, 8, 12, 16, 22, 28, 38, 50, 64, 80, 100, 126, 192)),
+    32000: ((0, 4, 8, 12, 16, 20, 24, 30, 36, 44, 54, 66, 82, 102, 126, 156,
+             194, 240, 296, 364, 448, 550, 576),
+            (0, 4, 8, 12, 16, 22, 30, 42, 58, 78, 104, 138, 180, 192)),
+}
 PRETAB = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 3, 2, 0)
 ALIAS_C = (-0.6, -0.535, -0.33, -0.185, -0.095, -0.041, -0.0142, -0.0037)
 SHORT = 2
@@ -68,23 +81,25 @@ def _mm(a, b, precision):
     return a @ b
 
 
-def _short_positions():
-    """(window, line) of each bitstream position of a short granule."""
+def _short_positions(sample_rate: int = 44100):
+    """(window, line, band) of each bitstream position of a short
+    granule."""
+    sfb = SFB[sample_rate][1]
     w = np.zeros(576, np.int64)
     f = np.zeros(576, np.int64)
     s_of = np.zeros(576, np.int64)
     for s in range(13):
-        a, b = SFB_SHORT[s], SFB_SHORT[s + 1]
+        a, b = sfb[s], sfb[s + 1]
         for win in range(3):
             p = 3 * a + win * (b - a) + np.arange(b - a)
             w[p], f[p], s_of[p] = win, a + np.arange(b - a), s
     return w, f, s_of
 
 
-def requantise(g, dt, dev) -> torch.Tensor:
-    """Step 1: [G, 2, 576] in bitstream order."""
+def requantise(g, dt, dev, sample_rate: int = 44100) -> torch.Tensor:
+    """Step 1: [G, C, 576] in bitstream order."""
     q = torch.as_tensor(np.asarray(g.quant), device=dev).to(torch.float64)
-    G = q.shape[0]
+    G, C = q.shape[:2]
     gg = torch.as_tensor(np.asarray(g.global_gain), device=dev).double()
     mult = 0.5 * (1 + torch.as_tensor(np.asarray(g.scalefac_scale),
                                       device=dev).double())
@@ -92,15 +107,16 @@ def requantise(g, dt, dev) -> torch.Tensor:
     pre = torch.as_tensor(np.asarray(g.preflag), device=dev).double()
     sbg = torch.as_tensor(np.asarray(g.subblock_gain), device=dev).double()
     # Long: the band of each line.
-    band = np.searchsorted(SFB_LONG, np.arange(576), side="right") - 1
-    sf_l = torch.cat([sf[..., :21], torch.zeros((G, 2, 1), device=dev,
+    band = np.searchsorted(SFB[sample_rate][0], np.arange(576),
+                           side="right") - 1
+    sf_l = torch.cat([sf[..., :21], torch.zeros((G, C, 1), device=dev,
                                                 dtype=torch.float64)], -1)
     pretab = torch.tensor(PRETAB, device=dev, dtype=torch.float64)
     e_long = (0.25 * (gg[..., None] - 210) - mult[..., None] * (
         sf_l[..., band] + pre[..., None] * pretab[band]))
     # Short: the window and band of each bitstream position.
-    w, _, s = _short_positions()
-    sf_s = torch.cat([sf[..., :36], torch.zeros((G, 2, 3), device=dev,
+    w, _, s = _short_positions(sample_rate)
+    sf_s = torch.cat([sf[..., :36], torch.zeros((G, C, 3), device=dev,
                                                 dtype=torch.float64)], -1)
     e_short = (0.25 * (gg[..., None] - 210 - 8 * sbg[..., w])
                - mult[..., None] * sf_s[..., 3 * s + w])
@@ -110,9 +126,10 @@ def requantise(g, dt, dev) -> torch.Tensor:
     return x.to(dt)
 
 
-def reorder(x: torch.Tensor, short: torch.Tensor) -> torch.Tensor:
+def reorder(x: torch.Tensor, short: torch.Tensor,
+            sample_rate: int = 44100) -> torch.Tensor:
     """Step 2: short granules' lines to 3 f + w."""
-    w, f, _ = _short_positions()
+    w, f, _ = _short_positions(sample_rate)
     dest = torch.as_tensor(3 * f + w, device=x.device)
     ro = torch.empty_like(x)
     ro[..., dest] = x
@@ -120,7 +137,9 @@ def reorder(x: torch.Tensor, short: torch.Tensor) -> torch.Tensor:
 
 
 def mid_side(x: torch.Tensor, ms: torch.Tensor) -> torch.Tensor:
-    """Step 3: ms [G] per granule."""
+    """Step 3: ms [G] per granule; a mono stream's x as it is."""
+    if x.shape[1] == 1:
+        return x
     m, s = x[:, 0], x[:, 1]
     r2 = torch.tensor(0.5 ** 0.5, dtype=x.dtype, device=x.device)
     lr = torch.stack([(m + s) * r2, (m - s) * r2], 1)
@@ -214,11 +233,12 @@ def polyphase(S: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def synthesise(g, n_samples: int, enc_padding: int, device="cpu",
-               precision: str = "float64", gapless: bool = True
-               ) -> torch.Tensor:
-    """The trimmed PCM [2, n_samples] of a stream's granules; untrimmed,
-    every granule's 576 samples a channel, for ``gapless`` False (a
-    stream without the LAME tag)."""
+               precision: str = "float64", gapless: bool = True,
+               sample_rate: int = 44100) -> torch.Tensor:
+    """The trimmed PCM [C, n_samples] of a stream's granules at
+    ``sample_rate``'s scalefactor bands; untrimmed, every granule's 576
+    samples a channel, for ``gapless`` False (a stream without the LAME
+    tag)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dt = torch.float64 if precision == "float64" else torch.float32
@@ -226,8 +246,8 @@ def synthesise(g, n_samples: int, enc_padding: int, device="cpu",
     bt = torch.as_tensor(np.asarray(g.block_type), device=dev)
     short = bt == SHORT
     ms = torch.as_tensor(np.repeat(np.asarray(g.ms), 2), device=dev) != 0
-    x = requantise(g, dt, dev)
-    x = reorder(x, short)
+    x = requantise(g, dt, dev, sample_rate)
+    x = reorder(x, short, sample_rate)
     x = mid_side(x, ms)
     x = antialias(x, short)
     pcm = polyphase(overlap(imdct(x, bt, precision)), precision)

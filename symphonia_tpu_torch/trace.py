@@ -22,7 +22,10 @@ routing; ``open``: a batch decoder called directly opening a stream, which
 reader built, its frame-table walk, once a stream: in the probe, or in
 ``open``); ``extract``
 (host entropy); ``pack``, ``h2d``, ``d2h`` (lane packing + copies);
-``enqueue`` (dense kernels); ``stitch``, ``verify`` (stitch / verify).
+``enqueue`` (dense kernels); ``tables`` (dense kernels: an MPEG audio
+decoder's constant operators, Layer III's ``Mp3Dense`` or Layer I/II's
+``L12Dense``, built and uploaded at their first use in a call, their
+copies in ``h2d`` under it); ``stitch``, ``verify`` (stitch / verify).
 Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing + copies);
 ``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one a
 verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
@@ -35,7 +38,9 @@ entropy ran, M0 on the card or the host's extraction), ``mp3_card_bytes``
 and ``mp3_card_lanes`` (the frame bytes M0 read and the lanes it wrote);
 ``mp3_placed_streams`` and ``mp3_placed_bytes`` (stitch / verify: one a
 Layer III clip whose trimmed planar PCM M3 ``mp3_place`` laid out on the
-device, and the bytes it wrote).
+device, and the bytes it wrote); ``mp3_table_bytes`` (dense kernels: the
+bytes of the constant operators uploaded in span ``tables``, also counted
+in ``h2d_bytes``).
 """
 
 from __future__ import annotations

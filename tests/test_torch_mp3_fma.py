@@ -200,5 +200,8 @@ def test_scan_span_and_counters():
     assert r.counters["mp3_frames"] == frames
     assert r.counters["mp3_lanes"] == 4 * frames
     assert r.counters["mp3_short_lanes"] == short > 0
+    # The lanes, the boundary mask, and Layer III's constant operators
+    # (uploaded once a call, span ``tables``).
+    assert r.counters["mp3_table_bytes"] == 22976
     assert r.counters["h2d_bytes"] == 4 * frames * (576 * 4 + 4 + 1) + \
-        2 * frames
+        2 * frames + 22976

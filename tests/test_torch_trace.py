@@ -265,3 +265,47 @@ def test_cost_tool_measures_both_sides(capsys):
     assert 0 < out["off_ns_per_span"] and 0 < out["on_ns_per_span"]
     assert out["profiler"][0] == "CPU" and trace.requests() == []
     assert '"off_ns_per_span"' in capsys.readouterr().out
+
+
+def _layer3():
+    """A 48 kHz mono Layer III clip of 0.5 s, and its granules."""
+    from symphonia_tpu_torch.testing import mp3_lame_builder as lb
+
+    fmt, n = lb.Format(48000, 1, 64), 24000
+    g = lb.draw(np.random.default_rng(7), n, transient_every=8, fmt=fmt,
+                env=lb.envelope(14000, 0.15, sample_rate=48000))
+    return lb.build_stream(g, n, tags={}, fmt=fmt).data, 2 * lb.n_frames(n)
+
+
+def _layer2():
+    from chip_smoke import build_mpa_l12
+
+    return build_mpa_l12("l2", 6, 42), None
+
+
+@pytest.mark.parametrize("make,module", [(_layer3, "Mp3Dense"),
+                                         (_layer2, "L12Dense")],
+                         ids=["layer3", "layer2"])
+def test_constant_tables_span_and_bytes(make, module):
+    """One ``decode_many`` builds its MPEG audio decoder's constant
+    operators once, in one ``tables`` span, and counts their bytes as
+    ``mp3_table_bytes`` and in ``h2d_bytes`` (Layer III: the lanes, the
+    boundary mask and the tables, exactly); untraced, nothing is kept."""
+    from symphonia_tpu_torch.ops import mp3_dense
+
+    data, G = make()
+    tables = (mp3_dense.reference_tables() if module == "Mp3Dense"
+              else mp3_dense.l12_tables())
+    dense = getattr(mp3_dense, module).from_numpy(tables, "cpu")
+    nbytes = sum(b.numel() * b.element_size() for b in dense.buffers())
+    assert nbytes == (22976 if module == "Mp3Dense" else 10240)
+    batch.decode_many([data], device="cpu")
+    assert trace.requests() == []
+    _, _, (r,) = traced(batch.decode_many, [data], device="cpu")
+    assert r.calls["tables"] == 1
+    assert r.counters["mp3_table_bytes"] == nbytes
+    if G is None:
+        assert r.counters["h2d_bytes"] > nbytes
+    else:
+        assert r.counters["h2d_bytes"] == G * (576 * 4 + 4 + 1) + G + nbytes
+    assert sum(r.self_ns.values()) == r.root.end_ns - r.root.start_ns
