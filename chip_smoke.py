@@ -169,7 +169,12 @@ Phases (one line each; any failure raises and exits non-zero):
      ``native.mp3_extract`` bit for bit; on its output M1 and M2 at C = 1
      in one chunk against their twins, M3 against its twin and the host
      layout bit for bit, the chain's clip against ``decode_many``'s bit
-     for bit; each kernel's time beside its bound, M1 at every run length.
+     for bit; each kernel's time beside its bound, M1 at every run length;
+ 15. ``mpa_walk``: the frame-table walk on the host (no kernel) over a
+     fma_mp3.shard32 request's 32 clips and a 16-clip commonvoice_mp3
+     pool: the verbatim ``MpaReader`` and ``mpa_walk.MpaReader`` built,
+     the ``MediaSourceStream`` read and the compiled walk alone, in ms a
+     clip, and both readers' frame tables equal.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -3270,6 +3275,102 @@ def phase_mp3_speech(pool_size: int = MP3_SPEECH_POOL,
     return info
 
 
+# Phase 15: the host walk over a fma_mp3.shard32 request's 32 clips and a
+# pool of 16 commonvoice_mp3 clips, each pass timed MPA_WALK_PASSES times.
+MPA_WALK_FMA_CLIPS = 32
+MPA_WALK_SPEECH_CLIPS = 16
+MPA_WALK_PASSES = 5
+
+
+def phase_mpa_walk(fma_clips: int = MPA_WALK_FMA_CLIPS,
+                   speech_clips: int = MPA_WALK_SPEECH_CLIPS,
+                   passes: int = MPA_WALK_PASSES,
+                   device: str = "cuda") -> dict:
+    """The frame-table walk of each clip on the card machine's host:
+    a seeded fma_mp3.shard32 request and a commonvoice_mp3 pool, each clip
+    from where the probe starts its reader (after the ID3v2 tag). Per clip,
+    the best of ``passes`` passes, in ms: the verbatim ``MpaReader`` built,
+    ``mpa_walk.MpaReader`` built, the remainder read through the
+    ``MediaSourceStream`` alone (what both readers do first) and the
+    compiled walk alone; both readers' frame tables, first headers and
+    tracks equal. ``device`` (the generators' device) is "cuda" but for a
+    rehearsal on the CPU."""
+    import torch
+
+    from benchmark.gen import mp3 as gen_fma
+    from benchmark.gen import mp3_speech as gen_speech
+    from symphonia_tpu_torch import batch, mpa_walk
+    from symphonia_tpu_torch.core.io import MediaSourceStream
+    from symphonia_tpu_torch.formats.mpa import MpaReader
+
+    dev = torch.device(device)
+    lib = mpa_walk._lib()
+    if lib is None:
+        raise AssertionError("mpa_walk: the compiled walk did not build")
+
+    def cfg(name):
+        return json.loads(open(os.path.join(
+            ROOT, "benchmark", "configs", f"{name}.json")).read())
+
+    pools = {
+        "fma_mp3": [s.data for s in gen_fma.make_pool(
+            cfg("fma_mp3"), fma_clips, SEED + 25, device=dev)],
+        "commonvoice_mp3": [s.data for s in gen_speech.make_pool(
+            cfg("commonvoice_mp3"), speech_clips, SEED + 26, device=dev)]}
+
+    def read(mss):
+        chunks = []
+        while True:
+            b = mss.read_upto(1 << 22)
+            if not b:
+                return b"".join(chunks)
+            chunks.append(b)
+
+    def best_ms(fn, datas):
+        best = float("inf")
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            for d in datas:
+                fn(d)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / len(datas)
+
+    info = {}
+    for name, datas in pools.items():
+        # The bytes each reader walks: the probe starts it after the tag.
+        audio = [d[batch._probe(d)[1]._start:] for d in datas]
+        equal = True
+        frames = 0
+        for d in audio:
+            ref = MpaReader(MediaSourceStream(d))
+            port = mpa_walk.MpaReader(MediaSourceStream(d))
+            equal = equal and (
+                np.array_equal(ref._offsets, port._offsets)
+                and np.array_equal(ref._sizes, port._sizes)
+                and ref.header == port.header and ref._track == port._track)
+            frames += len(ref._offsets)
+        bufs = [read(MediaSourceStream(d)) for d in audio]
+        info[name] = dict(
+            clips=len(audio), frames=frames,
+            bytes=sum(len(d) for d in audio), tables_equal=equal,
+            verbatim_ms=best_ms(lambda d: MpaReader(MediaSourceStream(d)),
+                                audio),
+            compiled_ms=best_ms(
+                lambda d: mpa_walk.MpaReader(MediaSourceStream(d)),
+                audio),
+            read_ms=best_ms(lambda d: read(MediaSourceStream(d)), audio),
+            walk_ms=best_ms(lambda b: mpa_walk.walk(lib, b), bufs))
+        info[name]["speedup"] = (info[name]["verbatim_ms"]
+                                 / info[name]["compiled_ms"])
+    info["card"] = card_line() if device == "cuda" else None
+    print("phase 15 mpa_walk:", json.dumps(info), flush=True)
+    bad = sorted(n for n in pools if not info[n]["tables_equal"])
+    if bad:
+        raise AssertionError(f"mpa_walk: the compiled walk's table differs "
+                             f"from the verbatim reader's on {bad}")
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -3350,6 +3451,7 @@ def main() -> int:
                                  "shape", "enqueue_ms", "bits_equal_twin",
                                  "attributes")})
     m4 = timed("14", phase_mp3_speech)
+    timed("15", phase_mpa_walk)
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
@@ -3384,7 +3486,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

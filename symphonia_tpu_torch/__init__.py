@@ -90,16 +90,20 @@ def get_codecs() -> CodecRegistry:
 
 def _scanned(desc):
     """The MPEG audio descriptor with its reader built in span ``scan``
-    (:mod:`.trace`): building an ``MpaReader`` walks the whole stream's
-    frame table, one header parse a frame."""
+    (:mod:`.trace`): for a seekable source the port's
+    ``mpa_walk.MpaReader``, whose construction walks the whole stream's
+    frame table in compiled host code; otherwise the descriptor's own
+    factory (the streaming reader)."""
     import dataclasses
 
     factory = desc.factory
 
     def make(mss, options=None):
-        from . import trace
+        from . import mpa_walk, trace
 
         with trace.span("scan"):
+            if mss.is_seekable():
+                return mpa_walk.MpaReader(mss, options)
             return factory(mss, options)
 
     return dataclasses.replace(desc, factory=make)

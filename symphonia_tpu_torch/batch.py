@@ -682,9 +682,10 @@ class Mp3BatchDecoder(_BatchDecoder):
         return DecodedAudio(pcm, h.sample_rate, 32)
 
     def _open(self, mss):
-        """An ``MpaReader``: its frame-table walk in span ``scan``."""
+        """An ``mpa_walk.MpaReader``: its frame-table walk in span
+        ``scan``."""
         from .core.formats import FormatOptions
-        from .formats.mpa import MpaReader
+        from .mpa_walk import MpaReader
 
         with trace.span("scan"):
             return MpaReader(mss, FormatOptions(enable_gapless=self.gapless))

@@ -40,7 +40,10 @@ and ``mp3_card_lanes`` (the frame bytes M0 read and the lanes it wrote);
 Layer III clip whose trimmed planar PCM M3 ``mp3_place`` laid out on the
 device, and the bytes it wrote); ``mp3_table_bytes`` (dense kernels: the
 bytes of the constant operators uploaded in span ``tables``, also counted
-in ``h2d_bytes``).
+in ``h2d_bytes``); ``mpa_walk_native_streams``, ``mpa_walk_host_streams``
+(demux: one a seekable MPEG audio reader built, by whether its frame
+table came from the compiled walk of :mod:`.mpa_walk` or the verbatim
+Python walk).
 """
 
 from __future__ import annotations
