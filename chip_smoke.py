@@ -174,7 +174,14 @@ Phases (one line each; any failure raises and exits non-zero):
      fma_mp3.shard32 request's 32 clips and a 16-clip commonvoice_mp3
      pool: the verbatim ``MpaReader`` and ``mpa_walk.MpaReader`` built,
      the ``MediaSourceStream`` read and the compiled walk alone, in ms a
-     clip, and both readers' frame tables equal.
+     clip, and both readers' frame tables equal;
+ 16. ``musdb_flac``: the stereo FLAC path at the musdb_flac.tracks8
+     request (8 tracks of 200-312 s at 44.1 kHz, two at 24 bits):
+     ``decode_many(verify=True)`` equal to the source sample for sample,
+     every MD5 verified; the request timed with its MD5 placed by the
+     rule, on the card and on the host; F2 bit-equal to its twin at
+     [4096, 2, 4096]; F3 at two channels, 2 and 3 bytes a sample, across
+     lane chunks, against hashlib.
 Launch counts are read per path (each run from counts of 0): every kernel
 of a path must launch on it, and every kernel on some path. The line
 before the last is a JSON object of per-kernel results; the last is
@@ -3371,6 +3378,185 @@ def phase_mpa_walk(fma_clips: int = MPA_WALK_FMA_CLIPS,
     return info
 
 
+# Phase 16: the musdb_flac.tracks8 request (the cell's 8 tracks, one
+# seed), each way of placing its MD5 timed MUSDB_PASSES times; F2 at one
+# stereo lane chunk's shape; F3 at two channels over streams that cross
+# lane chunks (samples a stream, frames of 4,096).
+MUSDB_TRACKS = 8
+MUSDB_PASSES = 3
+MUSDB_F2_SHAPE = (4096, 2, 4096)
+MUSDB_MD5_LENGTHS = (50_000, 123_457, 8_193, 77_777, 300_001, 4_097)
+# The kernels the request's decode_many launches once a lane chunk (F3
+# where the rule puts the MD5 on the card).
+MUSDB_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "flac_md5")
+
+
+def _md5_chain(pool, frames_per_chunk: int) -> dict:
+    """The bytes F3 chains at a merged stereo request over ``pool``: its
+    frames in lane chunks of ``frames_per_chunk``, each chunk's part
+    taking the most bytes one stream hashes in it, the chunks one after
+    another."""
+    blocks = np.concatenate([s.blocks for s in pool])
+    cum = np.concatenate([[0], np.cumsum(blocks)])
+    first = np.cumsum([0] + [len(s.blocks) for s in pool[:-1]])
+    end = first + np.array([len(s.blocks) for s in pool])
+    width = np.array([2 * ((s.bits + 7) // 8) for s in pool])
+    chain, F = 0, len(blocks)
+    for i in range(0, F, frames_per_chunk):
+        lo, hi = np.clip(first, i, i + frames_per_chunk), np.clip(
+            end, i, i + frames_per_chunk)
+        chain += int(((cum[hi] - cum[lo]) * width).max())
+    return dict(chain_bytes=chain, chunks=-(-F // frames_per_chunk))
+
+
+def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
+                     passes: int = MUSDB_PASSES,
+                     f2_shape=MUSDB_F2_SHAPE,
+                     md5_lengths=MUSDB_MD5_LENGTHS, device: str = "cuda"
+                     ) -> dict:
+    """The stereo FLAC path at the musdb_flac.tracks8 request: the
+    configuration's seeded pool of ``tracks`` 44.1 kHz stereo tracks (two
+    of eight at 24 bits), all in one ``decode_many(verify=True)``, every
+    sample equal to the source and every ``md5_ok`` True; the request
+    timed (wall ms, best of ``passes`` after a first call) with its MD5
+    placed as the rule places it, on the card (F3) and on the host, each
+    placement's answers checked, and the rule's decision with the bytes
+    it weighed and the bytes F3 chains over the lane chunks. F2 at
+    ``f2_shape`` (one stereo lane chunk; 25-bit values, every assignment)
+    against its plain twin on the card, bit for bit, with both times
+    beside its bound. F3 at two channels, 2 and 3 bytes a sample, over
+    streams of ``md5_lengths`` samples cut into three lane chunks that
+    split them, against hashlib. The launches are those of the request's
+    first ``decode_many`` alone: F1, its helper, F2 and F3 once a lane
+    chunk. ``seconds`` (min, max) shortens the tracks and ``device`` is
+    "cuda" but for a rehearsal on the CPU."""
+    import torch
+
+    from benchmark.gen import flac_music as gen
+    from symphonia_tpu_torch import batch
+    from symphonia_tpu_torch.ops import _build
+    from symphonia_tpu_torch.ops import flac_dense as fd
+
+    dev = torch.device(device)
+    cfg = json.loads(open(os.path.join(
+        ROOT, "benchmark", "configs", "musdb_flac.json")).read())
+    if seconds is not None:
+        cfg["duration_s"].update(min=seconds[0], max=seconds[1])
+    t0 = time.perf_counter()
+    pool = gen.make_pool(cfg, tracks, SEED + 27, device=dev)
+    gen_s = time.perf_counter() - t0
+    datas = [s.data for s in pool]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    real_rule = batch._md5_on_card
+    seen = []
+
+    def decode(on_card):
+        """decode_many over the request, the placement forced (None: the
+        rule's) -> (outputs, wall ms)."""
+        def rule(nbytes):
+            d = real_rule(nbytes) if on_card is None else on_card
+            seen.append(dict(total_bytes=int(sum(nbytes)),
+                             max_bytes=int(max(nbytes)), card=bool(d)))
+            return d
+        batch._md5_on_card = rule
+        try:
+            t = time.perf_counter()
+            outs = batch.decode_many(datas, device=device, verify=True)
+            sync()
+            return outs, (time.perf_counter() - t) * 1e3
+        finally:
+            batch._md5_on_card = real_rule
+
+    def answers(outs) -> dict:
+        return dict(
+            mismatched=sum(int(np.count_nonzero(o.samples != s.pcm))
+                           if o.samples.shape == s.pcm.shape else -1
+                           for o, s in zip(outs, pool)),
+            md5_ok=all(o.md5_ok is True for o in outs))
+
+    _build.reset_launches()
+    outs, first_ms = decode(None)
+    launches = dict(_build.LAUNCHES)
+    exact = answers(outs)
+    rule = dict(seen[-1], **_md5_chain(pool, batch.FlacBatchDecoder(
+        device=device).lane_chunk // 2))
+    del outs
+    placements = {}
+    for name, on_card in (("rule", None), ("card", True), ("host", False)):
+        ms = []
+        for _ in range(passes):
+            outs, t = decode(on_card)
+            ms.append(t)
+        placements[name] = dict(ms=ms, best_ms=min(ms), **answers(outs))
+        del outs
+    faster = min(("card", "host"), key=lambda k: placements[k]["best_ms"])
+
+    # F2 at one stereo lane chunk's shape, against its twin.
+    F, _, n = f2_shape
+    rng = np.random.default_rng(SEED + 28)
+    x = torch.from_numpy(rng.integers(-(1 << 24), 1 << 24, size=f2_shape)
+                         .astype(np.int32)).to(dev)
+    a = torch.from_numpy(rng.integers(0, 4, size=F).astype(np.int32)).to(dev)
+    f2_equal = torch.equal(fd.decorrelate_batch(x, a),
+                           fd.decorrelate_plain(x, a))
+    f2 = dict(shape=list(f2_shape), bits_equal_twin=bool(f2_equal),
+              ms=cuda_ms(lambda: fd.decorrelate_batch(x, a), 20),
+              plain_ms=cuda_ms(lambda: fd.decorrelate_plain(x, a), 3),
+              **bound(16 * F * n + 4 * F, 0))
+    del x, a
+
+    # F3 at two channels across lane chunks, against hashlib.
+    f3 = {}
+    for bps in (16, 24):
+        trims = [m - (k % 3) * 5 for k, m in enumerate(md5_lengths)]
+        case = _md5_case(md5_lengths, 2, bps, [4096], trims, SEED + bps, dev)
+        Fm = case["x"].shape[0]
+        cuts = (Fm // 3, 2 * Fm // 3)
+        got = _md5_run(case, dev, cuts=cuts).digests()
+        f3[f"width{(bps + 7) // 8}"] = dict(
+            streams=len(md5_lengths), frames=Fm, chunks=len(cuts) + 1,
+            equal_hashlib=got == case["want"])
+
+    info = dict(
+        tracks=len(pool), bits=[s.bits for s in pool],
+        seconds=sum(s.seconds for s in pool),
+        frames=sum(len(s.blocks) for s in pool),
+        bytes=sum(len(d) for d in datas),
+        message_bytes=sum(s.pcm.size * ((s.bits + 7) // 8) for s in pool),
+        assign_mix=np.bincount(np.concatenate(
+            [s.frames["assign"] for s in pool]), minlength=4).tolist(),
+        bits_per_sample=8 * sum(len(d) for d in datas) / sum(
+            s.pcm.size for s in pool),
+        generate_s=gen_s, first_ms=first_ms, exact=exact, rule=rule,
+        placements=placements, faster=faster,
+        rule_picks_faster=rule["card"] == (faster == "card"),
+        decorrelate=f2, md5=f3, launches=launches,
+        card=card_line() if device == "cuda" else None)
+    print("phase 16 musdb_flac:", json.dumps(info), flush=True)
+    bad = [k for k in ("rule", "card", "host")
+           if placements[k]["mismatched"] or not placements[k]["md5_ok"]]
+    if exact["mismatched"] or not exact["md5_ok"] or bad:
+        raise AssertionError(f"decode_many differs from the source at the "
+                             f"musdb_flac request (placements {bad})")
+    if not f2_equal:
+        raise AssertionError("flac_decorrelate differs from its twin")
+    if not all(v["equal_hashlib"] for v in f3.values()):
+        raise AssertionError("flac_md5 at two channels differs from "
+                             "hashlib")
+    want = {k: rule["chunks"] for k in MUSDB_PATH}
+    if not rule["card"]:
+        want["flac_md5"] = 0
+    off = {k: launches[k] for k in want if launches[k] != want[k]}
+    if off:
+        raise AssertionError(f"decode_many's launches at the musdb_flac "
+                             f"request, {rule['chunks']} lane chunks: {off}")
+    return info
+
+
 def _decode_or_error(batch, soak, data: bytes, device: str):
     """``decode_bytes``'s samples on ``device``, or the name of the
     taxonomy error it raised."""
@@ -3452,6 +3638,7 @@ def main() -> int:
                                  "attributes")})
     m4 = timed("14", phase_mp3_speech)
     timed("15", phase_mpa_walk)
+    m16 = timed("16", phase_musdb_flac)
     paths = {"decode_many": sl["launches"], "golden": gd["launches"],
              "pcm_batch": pb["launches"],
              "rice_bench": rb["launches"], "entry_step": st["launches"],
@@ -3459,7 +3646,7 @@ def main() -> int:
              "bench": bn["launches"], "soak": sk["launches"],
              "multichip": mc["launches"], "md5": m5["launches"],
              "mp3_entropy": m0["launches"], "mp3_place": m3["launches"],
-             "mp3_speech": m4["launches"]}
+             "mp3_speech": m4["launches"], "musdb_flac": m16["launches"]}
     rows = []
     for name, (route, source, replaces) in KERNEL_INFO.items():
         k = kern[name]
@@ -3486,7 +3673,7 @@ def main() -> int:
                                           "bits_equal_twin", "attributes",
                                           "by_shape")
                         if f in k}})
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s "
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s "
           f"(s by phase: {json.dumps(wall)})", flush=True)
     print(env["card"])
     print(json.dumps({"kernels": rows}))

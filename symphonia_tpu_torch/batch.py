@@ -87,7 +87,13 @@ _NO_MD5 = b"\x00" * 16
 # the host's rate over the whole MD5 path (_flac_md5_ok) over one F3
 # chain's rate, both measured by chip_smoke.py's phase 11: 352-408 MB/s
 # over the FLAC bulk cell's 128 streams against 98.8-99.0 MB/s, 3.6-4.1
-# (an H100 80GB HBM3 and its host; PERF.md).
+# (an H100 80GB HBM3 and its host; PERF.md). A group that spans lane
+# chunks chains each stream's part of a chunk after the chunk before, so
+# its chain is longer than max(bytes); the rule holds there all the same,
+# because the host hashes stereo (and 3-byte) samples slower: phase 16, at
+# the musdb_flac.tracks8 request (8 stereo tracks, 402 MB hashed over six
+# chunks, a chained 275 MB), took 4.90-5.79 s a request with F3 and
+# 6.01-8.40 s with the host's MD5 in two calls (PERF.md).
 MD5_HOST_PER_CHAIN = 4.0
 
 

@@ -514,9 +514,18 @@ def decode_packed(packed, device, md5: LaneMd5 | None = None) -> np.ndarray:
     ``h2d`` span, the launches, then the result back. With ``md5``,
     ``packed["md5_table"]`` (the chunk's :meth:`LaneMd5.table`) goes up
     with the lanes, and F3 is queued on the lanes once they are back, so
-    that it runs while the host stitches them."""
+    that it runs while the host stitches them. Counted from the packed
+    shapes: F1's lanes and lane samples (L x n_max) as ``flac_lanes`` and
+    ``flac_lane_samples``, F2's frames and frame samples (F x n_max) as
+    ``flac_stereo_frames`` and ``flac_stereo_samples``."""
     n_max = int(packed["n_max"])
     F, C = int(packed["F"]), int(packed["C"])
+    if trace.enabled():
+        trace.count("flac_lanes", F * C)
+        trace.count("flac_lane_samples", F * C * n_max)
+        if C == 2:
+            trace.count("flac_stereo_frames", F)
+            trace.count("flac_stereo_samples", F * n_max)
     keys = ("res", "coefs", "order", "shift", "wasted")
     keys += ("assign",) if C == 2 else ()
     keys += ("md5_table",) if md5 is not None else ()

@@ -29,7 +29,13 @@ copies in ``h2d`` under it); ``stitch``, ``verify`` (stitch / verify).
 Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing + copies);
 ``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one a
 verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
-card or ``batch._flac_md5_ok`` on the host); ``mp3_frames`` (Layer III
+card or ``batch._flac_md5_ok`` on the host); ``flac_lanes`` and
+``flac_lane_samples`` (dense kernels: the subframe lanes of each chunk
+sent to F1 ``flac_lpc`` and their samples, L x n_max, counted from the
+packed chunks' shapes in ``flac_dense.decode_packed``, not from the
+launches), ``flac_stereo_frames`` and ``flac_stereo_samples`` (the stereo
+frames of each chunk sent to F2 ``flac_decorrelate`` and their samples
+a channel, F x n_max); ``mp3_frames`` (Layer III
 frames extracted), ``mp3_lanes`` and ``mp3_short_lanes`` (the granule x
 channel lanes sent to M1 and M2, and those of short blocks, counted from
 the extraction's output, not from the launches); ``mp3_card_streams``,

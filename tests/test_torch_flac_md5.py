@@ -306,7 +306,8 @@ def test_verify_false_launches_and_uploads_nothing(monkeypatch):
                         lambda *a: (calls.append(1), real(*a))[1])
     outs, c = traced(group("mono"), verify=False)
     assert not calls and all(o.md5_ok is None for o in outs)
-    assert set(c) == {"h2d_bytes", "d2h_bytes"}
+    assert set(c) == {"h2d_bytes", "d2h_bytes", "flac_lanes",
+                      "flac_lane_samples"}
     _, c2 = traced(group("mono"), verify=True)
     assert calls == [1]
     # The table (a row of 8 int32 a stream and each frame's block size)

@@ -189,7 +189,8 @@ def test_copy_bytes_equal_the_packed_shapes(kind):
     # Per channel-count group: each lane sends its residual row (the
     # group's widest), 32 coefficients, order, shift and wasted bits as
     # int32, a stereo frame its assignment code; each lane's row comes
-    # back whole.
+    # back whole. F1's lanes and F2's frames are counted with their rows'
+    # samples.
     streams = flacs(kind)
     groups = {}
     for d in streams:
@@ -200,8 +201,15 @@ def test_copy_bytes_equal_the_packed_shapes(kind):
     h2d = sum(4 * F * (C * (n_max + 32 + 3) + (C == 2))
               for C, (F, n_max) in groups.items())
     d2h = sum(4 * F * C * n_max for C, (F, n_max) in groups.items())
+    want = {"h2d_bytes": h2d, "d2h_bytes": d2h,
+            "flac_lanes": sum(F * C for C, (F, _) in groups.items()),
+            "flac_lane_samples": sum(F * C * n for C, (F, n) in
+                                     groups.items())}
+    if 2 in groups:
+        want.update(flac_stereo_frames=groups[2][0],
+                    flac_stereo_samples=groups[2][0] * groups[2][1])
     _, _, (r,) = traced(batch.decode_many, streams, device="cpu")
-    assert r.counters == {"h2d_bytes": h2d, "d2h_bytes": d2h}
+    assert r.counters == want
 
 
 def _mp3():
