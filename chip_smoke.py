@@ -3393,20 +3393,50 @@ MUSDB_PATH = ("flac_lane_order", "flac_lpc", "flac_decorrelate", "flac_md5")
 
 def _md5_chain(pool, frames_per_chunk: int) -> dict:
     """The bytes F3 chains at a merged stereo request over ``pool``: its
-    frames in lane chunks of ``frames_per_chunk``, each chunk's part
-    taking the most bytes one stream hashes in it, the chunks one after
-    another."""
-    blocks = np.concatenate([s.blocks for s in pool])
-    cum = np.concatenate([[0], np.cumsum(blocks)])
-    first = np.cumsum([0] + [len(s.blocks) for s in pool[:-1]])
-    end = first + np.array([len(s.blocks) for s in pool])
-    width = np.array([2 * ((s.bits + 7) // 8) for s in pool])
-    chain, F = 0, len(blocks)
-    for i in range(0, F, frames_per_chunk):
-        lo, hi = np.clip(first, i, i + frames_per_chunk), np.clip(
-            end, i, i + frames_per_chunk)
-        chain += int(((cum[hi] - cum[lo]) * width).max())
-    return dict(chain_bytes=chain, chunks=-(-F // frames_per_chunk))
+    frames laid out in lane chunks of ``frames_per_chunk`` by
+    ``batch._chunk_runs`` (each track spread over them in proportion),
+    each chunk's launch as long as the most bytes one track hashes in it,
+    the chunks one after another."""
+    from symphonia_tpu_torch import batch
+
+    runs = batch._chunk_runs([len(s.blocks) for s in pool], frames_per_chunk)
+    ends = np.cumsum(runs, axis=1)
+    part = np.stack([
+        np.diff(np.concatenate([[0], np.cumsum(s.blocks)])[
+            np.concatenate([[0], e])]) * 2 * ((s.bits + 7) // 8)
+        for s, e in zip(pool, ends)])
+    return dict(chain_bytes=int(part.max(0).sum()), chunks=runs.shape[1])
+
+
+def _traced_md5(fn, dev) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, the port's spans and
+    counters on: F3's device time (its kernel's rows; None without a
+    device trace) and the request's ``md5_card_bytes`` and
+    ``md5_chain_bytes``."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from symphonia_tpu_torch import trace
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    trace.reset()
+    with profile(activities=acts) as prof:
+        fn()
+    counts = Counter()
+    for r in trace.requests():
+        counts.update(r.counters)
+    trace.reset()
+    us = [getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0.0))
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and "flac_md5" in e.key]
+    return dict(f3_ms=sum(us) / 1e3 if us else None,
+                md5_card_bytes=counts["md5_card_bytes"],
+                md5_chain_bytes=counts["md5_chain_bytes"])
 
 
 def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
@@ -3421,7 +3451,11 @@ def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
     timed (wall ms, best of ``passes`` after a first call) with its MD5
     placed as the rule places it, on the card (F3) and on the host, each
     placement's answers checked, and the rule's decision with the bytes
-    it weighed and the bytes F3 chains over the lane chunks. F2 at
+    it weighed and the bytes F3 chains over the lane chunks (each track
+    spread over them by ``batch._chunk_runs``); one more request under
+    ``torch.profiler``: F3's device time and the port's counters
+    ``md5_card_bytes`` and ``md5_chain_bytes``, held to the bytes hashed
+    and chained. F2 at
     ``f2_shape`` (one stereo lane chunk; 25-bit values, every assignment)
     against its plain twin on the card, bit for bit, with both times
     beside its bound. F3 at two channels, 2 and 3 bytes a sample, over
@@ -3494,6 +3528,7 @@ def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
         placements[name] = dict(ms=ms, best_ms=min(ms), **answers(outs))
         del outs
     faster = min(("card", "host"), key=lambda k: placements[k]["best_ms"])
+    traced = _traced_md5(lambda: decode(None), dev)
 
     # F2 at one stereo lane chunk's shape, against its twin.
     F, _, n = f2_shape
@@ -3532,7 +3567,7 @@ def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
         bits_per_sample=8 * sum(len(d) for d in datas) / sum(
             s.pcm.size for s in pool),
         generate_s=gen_s, first_ms=first_ms, exact=exact, rule=rule,
-        placements=placements, faster=faster,
+        placements=placements, faster=faster, traced=traced,
         rule_picks_faster=rule["card"] == (faster == "card"),
         decorrelate=f2, md5=f3, launches=launches,
         card=card_line() if device == "cuda" else None)
@@ -3547,6 +3582,11 @@ def phase_musdb_flac(tracks: int = MUSDB_TRACKS, seconds=None,
     if not all(v["equal_hashlib"] for v in f3.values()):
         raise AssertionError("flac_md5 at two channels differs from "
                              "hashlib")
+    want = (info["message_bytes"], rule["chain_bytes"]) if rule["card"] \
+        else (0, 0)
+    if (traced["md5_card_bytes"], traced["md5_chain_bytes"]) != want:
+        raise AssertionError(f"flac_md5's counters at the musdb_flac "
+                             f"request: {traced}, not {want}")
     want = {k: rule["chunks"] for k in MUSDB_PATH}
     if not rule["card"]:
         want["flac_md5"] = 0

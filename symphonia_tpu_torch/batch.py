@@ -88,17 +88,47 @@ _NO_MD5 = b"\x00" * 16
 # chain's rate, both measured by chip_smoke.py's phase 11: 352-408 MB/s
 # over the FLAC bulk cell's 128 streams against 98.8-99.0 MB/s, 3.6-4.1
 # (an H100 80GB HBM3 and its host; PERF.md). A group that spans lane
-# chunks chains each stream's part of a chunk after the chunk before, so
-# its chain is longer than max(bytes); the rule holds there all the same,
-# because the host hashes stereo (and 3-byte) samples slower: phase 16, at
-# the musdb_flac.tracks8 request (8 stereo tracks, 402 MB hashed over six
-# chunks, a chained 275 MB), took 4.90-5.79 s a request with F3 and
-# 6.01-8.40 s with the host's MD5 in two calls (PERF.md).
+# chunks spreads each stream over them in proportion (_chunk_runs), so its
+# chain is max(bytes) there too, give or take a frame a chunk; the host
+# hashes stereo (and 3-byte) samples slower still: phase 16, at the
+# musdb_flac.tracks8 request (8 stereo tracks, 402 MB hashed over six
+# chunks, the longest track 75.9 MB), took 2.54-2.72 s a request with F3
+# and 5.02-5.10 s with the host's MD5 (PERF.md).
 MD5_HOST_PER_CHAIN = 4.0
 
 
 def _md5_on_card(nbytes: Sequence[int]) -> bool:
     return bool(nbytes) and sum(nbytes) > MD5_HOST_PER_CHAIN * max(nbytes)
+
+
+def _chunk_runs(frames: Sequence[int], per_chunk: int) -> np.ndarray:
+    """int64 [S, chunks]: how many of each stream's frames each lane chunk
+    of a merged group holds, the chunks cut every ``per_chunk`` frames as
+    ever (the last holds the rest). Each stream is spread over the chunks
+    in proportion to its frames: stream s holds F_s x size / F of a
+    chunk's ``size`` frames, rounded down or up, so that F3's chain in
+    each chunk is one stream's share and not a whole stream. Of the
+    frames a stream holds in the full chunks beyond its floor, their share
+    is rounded (largest remainders first), and they are dealt out in
+    stream order, chunk after chunk; the last chunk holds the rest. One
+    chunk holds every stream whole, and one stream fills the chunks in
+    turn: the cut of the plain concatenation."""
+    F = np.asarray(frames, np.int64)
+    total = int(F.sum())
+    full = max(0, -(-total // per_chunk) - 1)
+    if full == 0:
+        return F[:, None].copy()
+    # Frames a full chunk holds of each stream: q, or q + 1 (the
+    # "extra" ones, k to a chunk, as the remainders add up).
+    q, rem = np.divmod(F * per_chunk, total)
+    extra, part = np.divmod(full * rem, total)
+    need = full * (per_chunk - int(q.sum())) - int(extra.sum())
+    extra[np.argsort(-part, kind="stable")[:need]] += 1
+    runs = np.repeat(q[:, None], full + 1, axis=1)
+    dealt = np.arange(int(extra.sum())) % full
+    np.add.at(runs, (np.repeat(np.arange(len(F)), extra), dealt), 1)
+    runs[:, -1] = F - runs[:, :-1].sum(1)
+    return runs
 
 
 def _flac_md5_ok(samples: np.ndarray, si) -> Optional[bool]:
@@ -278,14 +308,18 @@ class FlacBatchDecoder(_BatchDecoder):
         md5_ok = _verify_host(pcm, si) if self.verify else None
         return DecodedAudio(pcm, si.sample_rate, si.bits_per_sample, md5_ok)
 
-    def _decode_packed_chunked(self, packed, blocks: np.ndarray,
-                               md5=None) -> np.ndarray:
+    def _decode_packed_chunked(self, packed, take: np.ndarray,
+                               owner: np.ndarray, streams: int,
+                               md5=None) -> List[np.ndarray]:
         """Dense stage over native-packed tensors in lane chunks, then
-        stitch the per-frame outputs; ``md5`` (a ``flac_dense.LaneMd5``)
-        hashes each chunk's output on the device."""
+        stitch the per-frame outputs: each merged frame's first ``take``
+        samples to its stream ``owner`` (of ``streams``) -> each stream's
+        int32 [C, n], in an array of its own. ``md5`` (a
+        ``flac_dense.LaneMd5``) hashes each chunk's output on the
+        device."""
         F, C, n_max = int(packed["F"]), int(packed["C"]), int(packed["n_max"])
         frames_per_chunk = max(1, self.lane_chunk // C)
-        outs = []
+        outs = [[] for _ in range(streams)]
         for i in range(0, F, frames_per_chunk):
             j = min(F, i + frames_per_chunk)
             with trace.span("pack"):
@@ -300,10 +334,12 @@ class FlacBatchDecoder(_BatchDecoder):
                     sub["md5_table"] = md5.table(i, j)
             out = flac_dense.decode_packed(sub, self.device, md5)
             with trace.span("stitch"):
-                for k in range(j - i):
-                    outs.append(out[k, :, : int(blocks[i + k])])
+                for k, (s, n) in enumerate(zip(owner[i:j].tolist(),
+                                               take[i:j].tolist())):
+                    outs[s].append(out[k, :, :n])
         with trace.span("stitch"):
-            return np.concatenate(outs, axis=1)
+            return [np.concatenate(o, axis=1) if o
+                    else np.zeros((C, 0), np.int32) for o in outs]
 
     @staticmethod
     def _open(mss):
@@ -356,44 +392,58 @@ class FlacBatchDecoder(_BatchDecoder):
 
     def _dispatch_merged(self, C: int, group, results) -> None:
         """One merged dense pass over every stream with channel count C,
+        each stream spread over the lane chunks by :func:`_chunk_runs`,
         then split, trim and verify per stream: on the card (F3) where
         :func:`_md5_on_card` says so for the streams that carry an MD5,
         else on the host."""
         with trace.span("pack"):
             n_max = max(int(p["n_max"]) for _, _, p, _ in group)
-            parts = {k: [] for k in ("res", "coefs", "order", "shift",
-                                     "wasted", "assign")}
-            blocks_l = []
-            spans = []
-            total_f = 0
-            for idx, si, p, blocks in group:
+            per_chunk = max(1, self.lane_chunk // C)
+            runs = _chunk_runs([int(p["F"]) for _, _, p, _ in group],
+                               per_chunk)
+            # Each run's first frame, in its stream and in the merged order.
+            start = np.cumsum(runs, axis=1) - runs
+            first = (np.arange(runs.shape[1]) * per_chunk
+                     + np.cumsum(runs, axis=0) - runs)
+            streams, spans = [], []
+            for s, (idx, si, p, blocks) in enumerate(group):
                 F = int(p["F"])
                 res = np.asarray(p["res"]).reshape(F, C, int(p["n_max"]))
                 if int(p["n_max"]) != n_max:
                     res = np.pad(res, ((0, 0), (0, 0),
                                        (0, n_max - int(p["n_max"]))))
-                parts["res"].append(res.reshape(F * C, n_max))
-                parts["coefs"].append(
-                    np.asarray(p["coefs"]).reshape(F * C, 32))
-                for k in ("order", "shift", "wasted"):
-                    parts[k].append(np.asarray(p[k]).reshape(F * C))
-                parts["assign"].append(np.asarray(p["assign"])[:F])
-                blocks_l.append(np.asarray(blocks))
-                spans.append((idx, si, int(np.asarray(blocks).sum()),
-                              total_f, F))
-                total_f += F
+                blocks = np.asarray(blocks)
+                n = int(blocks.sum())
+                keep = min(n, si.n_samples) if si.n_samples else n
+                # Each frame's samples that the trim keeps.
+                done = np.cumsum(blocks) - blocks
+                streams.append(dict(
+                    res=res, coefs=np.asarray(p["coefs"]).reshape(F, C, 32),
+                    assign=np.asarray(p["assign"])[:F], blocks=blocks,
+                    take=np.clip(keep - done, 0, blocks),
+                    **{k: np.asarray(p[k]).reshape(F, C)
+                       for k in ("order", "shift", "wasted")}))
+                spans.append((idx, si, n, first[s], runs[s]))
+            parts = {k: [] for k in streams[0]}
+            for c in range(runs.shape[1]):
+                for s, d in enumerate(streams):
+                    a, b = start[s, c], start[s, c] + runs[s, c]
+                    for k, v in d.items():
+                        parts[k].append(v[a:b])
             merged = {k: np.concatenate(v) for k, v in parts.items()}
-            merged.update(F=total_f, C=C, n_max=n_max)
-            blocks_all = np.concatenate(blocks_l)
+            blocks_all, take = merged.pop("blocks"), merged.pop("take")
+            for k in ("res", "coefs"):
+                merged[k] = merged[k].reshape(-1, merged[k].shape[2])
+            for k in ("order", "shift", "wasted"):
+                merged[k] = merged[k].reshape(-1)
+            merged.update(F=len(blocks_all), C=C, n_max=n_max)
+            owner = np.repeat(np.tile(np.arange(len(group)), runs.shape[1]),
+                              runs.T.reshape(-1))
             md5, on_card = self._card_md5(C, spans, blocks_all)
-        pcm_all = self._decode_packed_chunked(merged, blocks_all, md5)
+        pcms = self._decode_packed_chunked(merged, take, owner, len(group),
+                                           md5)
         with trace.span("stitch"):
-            pos = 0
-            for k, (idx, si, n, _, _) in enumerate(spans):
-                pcm = pcm_all[:, pos : pos + n]
-                pos += n
-                if si.n_samples:
-                    pcm = pcm[:, : si.n_samples]
+            for k, ((idx, si, *_), pcm) in enumerate(zip(spans, pcms)):
                 md5_ok = (_verify_host(pcm, si)
                           if self.verify and k not in on_card else None)
                 results[idx] = DecodedAudio(pcm, si.sample_rate,
@@ -408,12 +458,15 @@ class FlacBatchDecoder(_BatchDecoder):
     def _card_md5(self, C: int, spans, blocks_all):
         """(``flac_dense.LaneMd5`` | None, the indices into ``spans`` of
         the streams it hashes): the streams with an MD5 and a frame, when
-        the group verifies and :func:`_md5_on_card` takes their bytes."""
+        the group verifies and :func:`_md5_on_card` takes their bytes. A
+        span is (result index, STREAMINFO, samples, first, frames): the
+        stream's frames lie in runs of ``frames`` frames from ``first`` in
+        the merged order (one a lane chunk, or one run)."""
         if not self.verify:
             return None, []
         ks, n_hash, width = [], [], []
-        for k, (_, si, n, _, F) in enumerate(spans):
-            if si.md5 != _NO_MD5 and F > 0:
+        for k, (_, si, n, _, frames) in enumerate(spans):
+            if si.md5 != _NO_MD5 and np.sum(frames) > 0:
                 ks.append(k)
                 n_hash.append(min(n, si.n_samples) if si.n_samples else n)
                 width.append((si.bits_per_sample + 7) // 8)

@@ -389,52 +389,81 @@ class LaneMd5:
     """The STREAMINFO MD5 of several streams of one merged dispatch,
     computed by F3 from each lane chunk's output.
 
-    Stream k's frames are ``frames[k]`` consecutive frames of the merged
-    order from ``first[k]``; its message is the first ``n_hash[k]``
-    samples of each channel, ``width[k]`` bytes a sample; ``blocks``
-    holds every merged frame's block size. Each chunk of frames [i, j)
-    sends :meth:`table` up with its lanes, and :meth:`update` queues F3 on
-    the chunk's output; the chunk that holds a stream's last frame
-    finalizes it, and :meth:`digests` brings the digests back."""
+    Stream k's frames lie in runs of the merged order, in stream order:
+    ``frames[k][r]`` consecutive frames from ``first[k][r]`` (one run a
+    stream where ``first`` and ``frames`` are flat; a run may be empty).
+    Its message is the first ``n_hash[k]`` samples of each channel,
+    ``width[k]`` bytes a sample; ``blocks`` holds every merged frame's
+    block size. Each chunk of frames [i, j), in which each stream's frames
+    form one run, sends :meth:`table` up with its lanes, and :meth:`update`
+    queues F3 on the chunk's output; the chunk that holds a stream's last
+    frame finalizes it, and :meth:`digests` brings the digests back."""
 
     def __init__(self, first, frames, n_hash, width, blocks, device):
-        self.first = np.asarray(first, np.int64)
-        self.end = self.first + np.asarray(frames, np.int64)
+        self.first, self.frames = (
+            a[:, None] if a.ndim == 1 else a
+            for a in (np.asarray(v, np.int64) for v in (first, frames)))
         self.n_hash = np.asarray(n_hash, np.int64)
         self.width = np.asarray(width, np.int64)
-        if (np.any(self.end <= self.first) or np.any(self.n_hash < 0)
+        self.total = self.frames.sum(1)
+        if (np.any(self.frames < 0) or np.any(self.total <= 0)
+                or np.any(self.n_hash < 0)
                 or np.any((self.width < 1) | (self.width > 4))):
             raise ValueError("each stream needs a frame, n_hash >= 0 and "
                              "1 to 4 bytes a sample")
         self.blocks = np.asarray(blocks, np.int32)
         self.cum = np.concatenate([[0], np.cumsum(self.blocks,
                                                   dtype=np.int64)])
+        # The stream's frames and samples before each of its runs.
+        n = self.cum[self.first + self.frames] - self.cum[self.first]
+        self.frames_before = np.cumsum(self.frames, 1) - self.frames
+        self.samples_before = np.cumsum(n, 1) - n
         self.state = torch.empty((len(self.first), MD5_STATE_WORDS),
                                  dtype=torch.int32, device=device)
+        self.row_bytes = np.zeros(len(self.first), np.int64)
 
     def table(self, i: int, j: int) -> np.ndarray:
         """int32 [8 S + j - i]: the streams' rows for the chunk of frames
-        [i, j), then the chunk's block sizes."""
-        first, end, cum = self.first, self.end, self.cum
-        lo, hi = np.clip(first, i, j), np.clip(end, i, j)
-        n_hash = self.n_hash
-        n = (np.minimum(n_hash, cum[hi] - cum[first])
-             - np.minimum(n_hash, cum[lo] - cum[first]))
-        rows = np.zeros((len(first), MD5_ROW), np.int32)
+        [i, j), then the chunk's block sizes. Keeps each row's bytes a
+        channel in :attr:`row_bytes` for :meth:`update`'s counters."""
+        lo = np.clip(self.first, i, j)
+        hi = np.clip(self.first + self.frames, i, j)
+        live = hi > lo
+        if np.any(live.sum(1) > 1):
+            raise ValueError("a stream's frames in a chunk must be one run")
+        r = live.argmax(1)[:, None]
+
+        def run(a):
+            return np.take_along_axis(a, r, 1)[:, 0]
+
+        first, lo, hi = run(self.first), run(lo), run(hi)
+        cum, n_hash = self.cum, self.n_hash
+        done = run(self.samples_before) - cum[first]
+        n = (np.minimum(n_hash, done + cum[hi])
+             - np.minimum(n_hash, done + cum[lo]))
+        f0 = run(self.frames_before) + lo - first
+        rows = np.zeros((len(n_hash), MD5_ROW), np.int32)
         rows[:, 0] = lo - i
         rows[:, 1] = hi - lo
         rows[:, 2] = n
         rows[:, 3] = self.width
-        rows[:, 4] = (MD5_FIRST * ((first >= i) & (first < j))
-                      + MD5_LAST * ((end > i) & (end <= j)))
+        rows[:, 4] = (hi > lo) * (MD5_FIRST * (f0 == 0) + MD5_LAST
+                                  * (f0 + hi - lo == self.total))
+        self.row_bytes = n * self.width
         return np.concatenate([rows.reshape(-1), self.blocks[i:j]])
 
     def update(self, x: torch.Tensor, table: torch.Tensor) -> None:
         """Queue F3 on a chunk's output ``x`` [j - i, C, n_max] with that
-        chunk's :meth:`table`, on its device."""
-        rows = MD5_ROW * len(self.first)
+        chunk's :meth:`table`, on its device. Counted from the table: the
+        bytes its rows hash as ``md5_card_bytes``, its largest row's (the
+        chain that the launch runs for) as ``md5_chain_bytes``."""
+        rows = MD5_ROW * len(self.n_hash)
         md5_lanes(x, table[:rows].view(-1, MD5_ROW), table[rows:],
                   self.state)
+        if trace.enabled():
+            b = self.row_bytes * x.shape[1]
+            trace.count("md5_card_bytes", int(b.sum()))
+            trace.count("md5_chain_bytes", int(b.max()))
 
     def digests(self) -> List[bytes]:
         """Every stream's 16-byte digest, once its last chunk has run."""

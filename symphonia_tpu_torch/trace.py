@@ -29,7 +29,11 @@ copies in ``h2d`` under it); ``stitch``, ``verify`` (stitch / verify).
 Counters: ``h2d_bytes``, ``d2h_bytes`` (lane packing + copies);
 ``md5_card_streams``, ``md5_host_streams`` (stitch / verify: one a
 verified FLAC stream, by where its STREAMINFO MD5 was computed, F3 on the
-card or ``batch._flac_md5_ok`` on the host); ``flac_lanes`` and
+card or ``batch._flac_md5_ok`` on the host), ``md5_card_bytes`` and
+``md5_chain_bytes`` (stitch / verify: the bytes each F3 ``flac_md5``
+launch hashes, summed over its table's rows, and its largest row's, the
+one stream's chain that the launch lasts for; counted from the tables in
+``flac_dense.LaneMd5.update``); ``flac_lanes`` and
 ``flac_lane_samples`` (dense kernels: the subframe lanes of each chunk
 sent to F1 ``flac_lpc`` and their samples, L x n_max, counted from the
 packed chunks' shapes in ``flac_dense.decode_packed``, not from the

@@ -8,6 +8,7 @@ card or the host, its counters, and its answers."""
 import functools
 import hashlib
 import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -315,3 +316,159 @@ def test_verify_false_launches_and_uploads_nothing(monkeypatch):
     F = sum(-(-(700 + 37 * s) // (160 + 16 * s)) for s in range(24))
     assert c2["h2d_bytes"] - c["h2d_bytes"] == 4 * (8 * 24 + F)
     assert c2["d2h_bytes"] - c["d2h_bytes"] == 16 * 24
+
+
+# ---------------------------------------------------------------------------
+# The lane chunks' layout
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_chunk_runs_spread_each_stream_in_proportion(seed):
+    """Every chunk but the last holds ``per_chunk`` frames, each stream's
+    runs add up to its frames, and each run lies within one frame of the
+    stream's share of its chunk, at random shapes."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        F = rng.integers(0 if seed else 1, 400, size=rng.integers(1, 13))
+        F[rng.integers(len(F))] += 1
+        per_chunk = int(rng.integers(1, 300))
+        runs = batch._chunk_runs(F, per_chunk)
+        total = int(F.sum())
+        chunks = -(-total // per_chunk)
+        size = np.minimum(per_chunk, total - per_chunk * np.arange(chunks))
+        assert runs.shape == (len(F), chunks) and runs.min() >= 0
+        np.testing.assert_array_equal(runs.sum(1), F)
+        np.testing.assert_array_equal(runs.sum(0), size)
+        assert np.abs(runs - np.outer(F, size) / total).max() < 1
+
+
+def test_chunk_runs_keep_one_chunk_and_one_stream_as_they_were():
+    np.testing.assert_array_equal(batch._chunk_runs([5, 0, 7], 12),
+                                  [[5], [0], [7]])
+    np.testing.assert_array_equal(batch._chunk_runs([23], 5),
+                                  [[5, 5, 5, 5, 3]])
+
+
+def _captured(monkeypatch):
+    """The groups ``_dispatch_merged`` takes, the merged arrays and frame
+    owners ``_decode_packed_chunked`` takes, and F3's (table, blocks) at
+    each launch."""
+    seen = dict(groups=[], merged=[], f3=[])
+    dispatch = batch.FlacBatchDecoder._dispatch_merged
+    chunked = batch.FlacBatchDecoder._decode_packed_chunked
+    real = fd.md5_lanes
+    monkeypatch.setattr(batch.FlacBatchDecoder, "_dispatch_merged",
+                        lambda self, C, g, r: (seen["groups"].append(g),
+                                               dispatch(self, C, g, r))[1])
+    monkeypatch.setattr(batch.FlacBatchDecoder, "_decode_packed_chunked",
+                        lambda self, *a: (seen["merged"].append(a),
+                                          chunked(self, *a))[1])
+    monkeypatch.setattr(fd, "md5_lanes", lambda x, t, b, s: (
+        seen["f3"].append((t.numpy().copy(), b.numpy().copy())),
+        real(x, t, b, s))[1])
+    return seen
+
+
+def _concatenated(group):
+    """The merged arrays and block sizes as the streams' plain
+    concatenation lays them out, one stream after another."""
+    C = int(group[0][2]["C"])
+    n_max = max(int(p["n_max"]) for _, _, p, _ in group)
+    out = {k: [] for k in ("res", "coefs", "order", "shift", "wasted",
+                           "assign", "blocks")}
+    for _, _, p, blocks in group:
+        F, n = int(p["F"]), int(p["n_max"])
+        res = np.asarray(p["res"]).reshape(F, C, n)
+        res = np.pad(res, ((0, 0), (0, 0), (0, n_max - n)))
+        out["res"].append(res.reshape(F * C, n_max))
+        out["coefs"].append(np.asarray(p["coefs"]).reshape(F * C, 32))
+        for k in ("order", "shift", "wasted"):
+            out[k].append(np.asarray(p[k]).reshape(F * C))
+        out["assign"].append(np.asarray(p["assign"])[:F])
+        out["blocks"].append(np.asarray(blocks))
+    return {k: np.concatenate(v) for k, v in out.items()}
+
+
+def _concatenated_tables(group, width, per_chunk):
+    """F3's table at each lane chunk of the plain concatenation: a row a
+    stream, (first frame in the chunk, frames, samples to hash, width,
+    flags), then the chunk's block sizes."""
+    frames = np.array([int(p["F"]) for _, _, p, _ in group])
+    blocks = np.concatenate([b for *_, b in group])
+    cum = np.concatenate([[0], np.cumsum(blocks)])
+    first = np.cumsum(frames) - frames
+    end = first + frames
+    n_hash = np.array([min(int(b.sum()), si.n_samples) for _, si, _, b
+                       in group])
+    out = []
+    for i in range(0, len(blocks), per_chunk):
+        j = min(len(blocks), i + per_chunk)
+        lo, hi = np.clip(first, i, j), np.clip(end, i, j)
+        rows = np.zeros((len(group), 8), np.int32)
+        rows[:, 0], rows[:, 1], rows[:, 3] = lo - i, hi - lo, width
+        rows[:, 2] = (np.minimum(n_hash, cum[hi] - cum[first])
+                      - np.minimum(n_hash, cum[lo] - cum[first]))
+        rows[:, 4] = (fd.MD5_FIRST * ((first >= i) & (first < j))
+                      + fd.MD5_LAST * ((end > i) & (end <= j)))
+        out.append((rows, blocks[i:j]))
+    return out
+
+
+@pytest.mark.parametrize("shape", ["one_chunk", "one_stream"])
+def test_one_chunk_or_one_stream_keeps_the_concatenation(monkeypatch, shape):
+    """A group in one lane chunk, or of one stream over several, is laid
+    out as the streams' plain concatenation: the merged arrays, the block
+    sizes and every F3 table byte for byte."""
+    seen = _captured(monkeypatch)
+    monkeypatch.setattr(batch, "_md5_on_card", lambda parts: True)
+    if shape == "one_chunk":
+        datas, lane_chunk = group("stereo24")[:10], 8192
+    else:
+        datas, lane_chunk = [_flac(5000, 3, ch=2, bps=24, block=160)], 16
+    dec = batch.FlacBatchDecoder(device="cpu", verify=True,
+                                 lane_chunk=lane_chunk)
+    outs = dec.decode_many(datas)
+    assert all(o.md5_ok is True for o in outs)
+    (g,) = seen["groups"]
+    (merged, take, owner, streams, _), = seen["merged"]
+    want = _concatenated(g)
+    for k in ("res", "coefs", "order", "shift", "wasted", "assign"):
+        assert merged[k].dtype == want[k].dtype
+        assert merged[k].tobytes() == want[k].tobytes(), k
+    assert merged["F"] == len(want["blocks"]) == len(owner)
+    np.testing.assert_array_equal(take, want["blocks"])  # nothing trimmed
+    np.testing.assert_array_equal(
+        owner, np.repeat(np.arange(len(g)), [int(p["F"]) for *_, p, _ in g]))
+    tables = _concatenated_tables(g, 3, lane_chunk // 2)
+    assert len(seen["f3"]) == len(tables) == (1 if shape == "one_chunk"
+                                              else 4)
+    for (t, b), (rows, blocks) in zip(seen["f3"], tables):
+        assert t.tobytes() == rows.tobytes()
+        assert b.tobytes() == blocks.astype(np.int32).tobytes()
+
+
+@pytest.mark.parametrize("lane_chunk", [8, 64])
+def test_counters_read_the_chain(monkeypatch, lane_chunk):
+    """Under trace, ``md5_card_bytes`` is every hashed byte and
+    ``md5_chain_bytes`` each launch's largest row: the longest stream's
+    bytes, and at most a frame more a chunk."""
+    monkeypatch.setattr(batch, "_md5_on_card", lambda parts: True)
+    datas = group("stereo24")[:10]
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        outs = batch.FlacBatchDecoder(device="cpu", verify=True,
+                                      lane_chunk=lane_chunk).decode_many(
+                                          datas)
+    # A decoder called directly: its opens are requests of their own.
+    c = sum((Counter(r.counters) for r in trace.requests()), Counter())
+    trace.reset()
+    assert [o.md5_ok for o in outs] == [True] * 10
+    hashed = [o.samples.size * 3 for o in outs]
+    frame = max(160 + 16 * s for s in range(10)) * 2 * 3
+    frames = sum(-(-(700 + 37 * s) // (160 + 16 * s)) for s in range(10))
+    chunks = -(-frames // (lane_chunk // 2))
+    assert chunks == (11 if lane_chunk == 8 else 2)
+    assert c["md5_card_bytes"] == sum(hashed)
+    assert (max(hashed) <= c["md5_chain_bytes"]
+            <= max(hashed) + chunks * frame)

@@ -98,6 +98,65 @@ def test_streams_across_lane_chunks(monkeypatch, lane_chunk):
     assert all(len(s.blocks) > lane_chunk // 2 for s in pool)
 
 
+def _trimmed(s, cut: int) -> bytes:
+    """Stream ``s`` with STREAMINFO's total ``cut`` samples short of what
+    its frames hold, and the MD5 of what is left."""
+    n = s.pcm.shape[1] - cut
+    b = bytearray(s.data)
+    v = int.from_bytes(b[8 + 13 : 8 + 18], "big")
+    b[8 + 13 : 8 + 18] = ((v >> 36 << 36) | n).to_bytes(5, "big")
+    b[8 + 18 : 8 + 34] = gen.md5_of(s.pcm[:, :n], s.bits)
+    return bytes(b)
+
+
+@pytest.mark.parametrize("tracks,chunks", [(5, 3), (8, 6)])
+def test_a_group_spread_over_lane_chunks(monkeypatch, tracks, chunks):
+    """Unequal 16- and 24-bit tracks, one trimmed by STREAMINFO's total and
+    one with the all-zero MD5, over 3 or 6 lane chunks: each chunk holds
+    each track's frames as one run within one frame of its share, F3 runs
+    once a chunk of at most lane_chunk // 2 frames, and every track
+    decodes as the source and as a decode of its file alone."""
+    pool = gen.make_pool(small(0.15, 0.35, hires=(1, 3)), tracks, 2**31 + 3)
+    F = [len(s.blocks) for s in pool]
+    assert len(set(F)) > 2 and {s.bits for s in pool} == {16, 24}
+    per_chunk = -(-sum(F) // chunks)
+    assert -(-sum(F) // per_chunk) == chunks
+    datas = [s.data for s in pool]
+    datas[1] = _trimmed(pool[1], 11)
+    datas[2] = datas[2][: 8 + 18] + bytes(16) + datas[2][8 + 34 :]
+    want = [s.pcm for s in pool]
+    want[1] = want[1][:, :-11]
+
+    seen, calls = [], []
+    chunked = batch.FlacBatchDecoder._decode_packed_chunked
+    real = fd.md5_lanes
+    monkeypatch.setattr(batch.FlacBatchDecoder, "_decode_packed_chunked",
+                        lambda self, *a: (seen.append(a),
+                                          chunked(self, *a))[1])
+    monkeypatch.setattr(fd, "md5_lanes",
+                        lambda x, *a: (calls.append(x.shape[0]),
+                                       real(x, *a))[1])
+    monkeypatch.setattr(batch, "_md5_on_card", lambda parts: True)
+    dec = batch.FlacBatchDecoder(device="cpu", verify=True,
+                                 lane_chunk=2 * per_chunk)
+    outs = dec.decode_many(datas)
+    assert len(calls) == chunks and max(calls) <= per_chunk
+    assert sum(calls) == sum(F)
+    (_, _, owner, _, _), = seen
+    for k, (o, w) in enumerate(zip(outs, want)):
+        np.testing.assert_array_equal(o.samples, w)
+        assert o.samples.flags.c_contiguous
+        assert o.md5_ok is (None if k == 2 else True)
+        (one,) = batch.decode_many([datas[k]], device="cpu", verify=True)
+        np.testing.assert_array_equal(o.samples, one.samples)
+    for c in range(chunks):
+        part = owner[c * per_chunk : (c + 1) * per_chunk]
+        for s, n in enumerate(F):
+            at = np.flatnonzero(part == s)
+            assert np.all(np.diff(at) == 1)
+            assert abs(len(at) - n * len(part) / sum(F)) < 1
+
+
 def test_merged_equals_per_file():
     pool = gen.make_pool(small(), 3, 7)
     datas = [s.data for s in pool]
@@ -224,6 +283,9 @@ def test_chip_smoke_phase_16_on_the_cpu(monkeypatch, capsys):
     rule = info["rule"]
     assert rule["card"] is (rule["total_bytes"] > 4 * rule["max_bytes"])
     assert rule["chunks"] == 1 and rule["chain_bytes"] == rule["max_bytes"]
+    assert info["traced"] == dict(
+        f3_ms=None, md5_card_bytes=info["message_bytes"] * rule["card"],
+        md5_chain_bytes=rule["chain_bytes"] * rule["card"])
     assert info["decorrelate"]["bits_equal_twin"]
     assert all(v["equal_hashlib"] for v in info["md5"].values())
     assert set(info["md5"]) == {"width2", "width3"}
